@@ -12,19 +12,29 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — every kernel source under ``tpuflow_torch/kernels/csrc`` is
    compiled by ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, with CUDA-event timings of the
-   kernel, the plain version and one library call as a yardstick.
-4. serve   — an LSTM-64 and a stacked-LSTM artifact (random weights from a
-   seed, written by the port's checkpoint writer) served over
-   ``POST /predict`` by the port's HTTP server on the default device; each
-   answer is checked for status, count, finite values, agreement with the
-   same predictor's plain path, and the kernel launches it caused.
-5. breakdown — after the counted run, where one warm 3912-window request's
+   the shapes the training and serving paths give it (``lstm_fwd``,
+   ``lstm_bwd``, ``mae_clip``), with CUDA-event timings of the kernel, the
+   plain version and, where one exists, a library call as a yardstick.
+4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
+   device: LSTM-64 for 3 epochs, then the stacked LSTM for 2. Each run's
+   kernel launches must equal what the dataset sizes give; losses must be
+   finite and LSTM-64 must beat the Gilbert baseline. Then, after the
+   counted runs: one batch's gradients through the kernels against the
+   plain path, steady train samples/s, and a ``torch.profiler`` window of
+   steady steps.
+5. serve   — the two trained artifacts and an LSTM-64 and a stacked-LSTM
+   artifact with random weights from a seed (written by the port's
+   checkpoint writer) served over ``POST /predict`` by the port's HTTP
+   server on the default device; each answer is checked for status, count,
+   finite values, agreement with the same predictor's plain path, and the
+   kernel launches it caused.
+6. breakdown — after the counted run, where one warm 3912-window request's
    time goes: host-clock stages and one ``torch.profiler`` window.
 
 The line before last is ``nvidia-smi``'s name and power limit, the one
-before it the kernels' JSON record, and the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tpuflow``.
+before it the kernels' JSON record (launches from the train phase), and the
+last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``tpuflow``.
 """
 
 from __future__ import annotations
@@ -48,14 +58,25 @@ SCHEMA = [("pressure", "float"), ("choke", "float"), ("glr", "float"),
           ("temperature", "float"), ("water_cut", "float"),
           ("completion", "string"), ("well", "string"), ("flow", "float")]
 BATCH = 4096  # Predictor's forward chunk
+TRAIN_BATCH = 20  # TrainJobConfig.batch_size
 # H100 SXM data sheet: HBM rate and the f32 rate
-# of the CUDA cores, which the f32 kernel uses.
+# of the CUDA cores, which the f32 kernels use.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # Kernel vs plain on the card, f32: the two sum h @ W_h in other orders and
 # use other exp/tanh code; over 24 dependent steps that stays within a few
 # ulp of values of order 1, far inside 1e-5.
 KERNEL_ATOL = KERNEL_RTOL = 1e-5
+# lstm_bwd vs plain, normwise (max abs error over max abs value): dxw 1e-5
+# (24 dependent steps, each summing 4H products in another order); dW_h and
+# db 1e-4 (sums over B*T products, per block and then over the blocks).
+BWD_TOL = {"dxw": 1e-5, "dwh": 1e-4, "db": 1e-4}
+# mae_clip vs plain: per-row f32 sums in another order, up to 98,304
+# elements a row; relative 1e-5.
+MAE_RTOL = 1e-5
+# Parameter gradients of one training batch, kernels vs plain path,
+# normwise 1e-4: they sum B*T products through both recurrences.
+GRAD_TOL = 1e-4
 # Served predictions vs the plain path, in normalised target units (they are
 # compared after denormalisation, so scaled by target_std).
 PRED_ATOL_NORM = 1e-5
@@ -98,8 +119,50 @@ def lstm_bound(Tn: int, B: int, Hn: int) -> tuple[float, str]:
     products, 1 sum)."""
     nbytes = 4 * (Tn * B * 4 * Hn + Hn * 4 * Hn + 4 * Hn + Tn * B * Hn)
     ops = Tn * B * (2 * Hn * 4 * Hn + 2 * 4 * Hn + 9 * Hn)
+    return _bound(nbytes, ops)
+
+
+def lstm_bwd_bound(Tn: int, B: int, Hn: int) -> tuple[float, str]:
+    """Least time for lstm_bwd: bytes of xw, W_h, b, hs, cs and dhs read once
+    and dxw, dW_h and db written once; operations per row and step of the
+    three H x 4H products (2*H*4H each: the recomputed h @ W_h, dz @ W_h^T
+    and h^T dz), adding xw and b (2*4H), and 32*H of gate math (5
+    activations, 23 elementwise for dz, dh and dc, 4 db sums)."""
+    nbytes = 4 * (2 * Tn * B * 4 * Hn + 2 * (Hn * 4 * Hn + 4 * Hn) + 3 * Tn * B * Hn)
+    ops = Tn * B * (3 * 2 * Hn * 4 * Hn + 2 * 4 * Hn + 32 * Hn)
+    return _bound(nbytes, ops)
+
+
+def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
+    """Least time for mae_clip: both operands read once, R sums written;
+    4 operations per element (subtract, abs, clip, add)."""
+    return _bound(4 * (2 * R * N + R), 4 * R * N)
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def normwise_err(got, want) -> float:
+    """Max abs error over max abs value of the reference."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def device_ms_by_kernel(prof) -> dict:
+    """Device milliseconds by kernel in a ``torch.profiler`` window: device
+    events only (a CPU op also reports its kernels' time), without the
+    ranges of user annotations such as ``Optimizer.step``, which span
+    kernels counted on their own."""
+    from torch.autograd import DeviceType
+
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if (evt.device_type == DeviceType.CUDA and us > 0
+                and not getattr(evt, "is_user_annotation", False)):
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
+    return by_kernel
 
 
 def phase_build() -> None:
@@ -120,8 +183,17 @@ def phase_build() -> None:
 
 
 def phase_kernels(torch) -> dict:
-    """lstm_fwd against lstm_scan_reference at T=24, H=64, B in {1, 37, 4096};
-    returns the record of the serving shape, B=4096."""
+    """Every kernel against its plain version; {name: record}."""
+    return {
+        "lstm_fwd": kernel_lstm_fwd(torch),
+        "lstm_bwd": kernel_lstm_bwd(torch),
+        "mae_clip": kernel_mae_clip(torch),
+    }
+
+
+def kernel_lstm_fwd(torch) -> dict:
+    """lstm_fwd against lstm_scan_reference at T=24, H=64, B in {1, 20, 37,
+    4096}; returns the record of the serving shape, B=4096."""
     from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
 
     dev = torch.device("cuda")
@@ -130,7 +202,7 @@ def phase_kernels(torch) -> dict:
         f"tolerance atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (other summation "
         "order and exp/tanh code over 24 dependent steps)")
     worst, record = 0.0, None
-    for B in (1, 37, 4096):
+    for B in (1, TRAIN_BATCH, 37, 4096):
         xw = torch.randn((T, B, 4 * H), generator=gen, device=dev)
         wh = torch.randn((H, 4 * H), generator=gen, device=dev) / H ** 0.5
         b = torch.randn(4 * H, generator=gen, device=dev) * 0.1
@@ -170,6 +242,262 @@ def phase_kernels(torch) -> dict:
     return record
 
 
+def kernel_lstm_bwd(torch) -> dict:
+    """lstm_bwd against lstm_scan_backward_reference at T=24, H=64, B in
+    {20 (the training batch), 37 (ragged), 4096}; returns the record of the
+    training shape, B=20."""
+    from tpuflow_torch.kernels.lstm import (
+        lstm_scan_backward,
+        lstm_scan_backward_reference,
+        lstm_scan_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    log(f"[kernel] lstm_bwd vs lstm_scan_backward_reference: f32, T={T}, "
+        f"H={H}; normwise tolerance {BWD_TOL} (dxw: 24 dependent steps of "
+        "4H-term sums in another order; dW_h, db: sums over B*T products)")
+    record, worst = None, 0.0
+    for B in (TRAIN_BATCH, 37, 4096):
+        xw = torch.randn((T, B, 4 * H), generator=gen, device=dev)
+        wh = torch.randn((H, 4 * H), generator=gen, device=dev) / H ** 0.5
+        b = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+        dhs = torch.randn((T, B, H), generator=gen, device=dev)
+        hs, cs = lstm_scan_reference(xw, wh, b)
+        got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+        torch.cuda.synchronize()
+        want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+        errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
+        max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+        worst = max(worst, max_abs)
+        for k, err in errs.items():
+            if err > BWD_TOL[k]:
+                raise AssertionError(
+                    f"lstm_bwd disagrees with its plain version at B={B} on "
+                    f"{k}: normwise err {err:.3e} > {BWD_TOL[k]}")
+        kernel_ms = cuda_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs))
+        plain_ms = cuda_ms(
+            torch, lambda: lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs), runs=20)
+        # Yardstick only, never called by the port: the backward through
+        # cuDNN's LSTM on the same xw, identity input projection and
+        # W_hh = W_h^T (it also forms the input-weight gradient).
+        lib = torch.nn.LSTM(4 * H, H).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+            lib.weight_hh_l0.copy_(wh.t())
+            lib.bias_ih_l0.copy_(b)
+            lib.bias_hh_l0.zero_()
+        inp = xw.clone().requires_grad_()
+        out = lib(inp)[0]
+        wrt = [inp, lib.weight_hh_l0, lib.bias_ih_l0]
+        lib_grads = torch.autograd.grad(out, wrt, dhs, retain_graph=True)
+        lib_err = max(normwise_err(lib_grads[0], want[0]),
+                      normwise_err(lib_grads[1].t(), want[1]),
+                      normwise_err(lib_grads[2], want[2]))
+        library_ms = cuda_ms(
+            torch, lambda: torch.autograd.grad(out, wrt, dhs, retain_graph=True))
+        bound_ms, bound_by = lstm_bwd_bound(T, B, H)
+        log(f"[kernel] lstm_bwd B={B:5d}: normwise_err="
+            + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
+            + f" max_abs_err={max_abs:.3e} kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (cuDNN "
+            f"nn.LSTM backward; normwise err vs plain {lib_err:.3e}) "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
+        if B == TRAIN_BATCH:
+            record = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+    record["max_abs_err"] = worst
+    return record
+
+
+def kernel_mae_clip(torch) -> dict:
+    """mae_clip against mae_clip_reference at [1, 480] (the train loss at
+    batch 20), [20, 24] (eval, one row per example) and [1, 4096*24];
+    returns the record of the train-loss shape."""
+    from tpuflow_torch.core.losses import CLIP_VALUE
+    from tpuflow_torch.kernels.losses import mae_clip_reference, mae_clip_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    log(f"[kernel] mae_clip vs mae_clip_reference: f32, clip {CLIP_VALUE}; "
+        f"tolerance rtol={MAE_RTOL} (per-row f32 sums in another order)")
+    record, worst = None, 0.0
+    for R, N in ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T)):
+        yt = torch.randn((R, N), generator=gen, device=dev) * 5
+        yp = torch.randn((R, N), generator=gen, device=dev) * 5
+        got = mae_clip_rows(yt, yp, CLIP_VALUE)
+        torch.cuda.synchronize()
+        want = mae_clip_reference(yt, yp, CLIP_VALUE)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(got, want, atol=0, rtol=MAE_RTOL):
+            raise AssertionError(
+                f"mae_clip disagrees with its plain version at [{R}, {N}]: "
+                f"max abs err {err:.3e}")
+        kernel_ms = cuda_ms(torch, lambda: mae_clip_rows(yt, yp, CLIP_VALUE))
+        plain_ms = cuda_ms(torch, lambda: mae_clip_reference(yt, yp, CLIP_VALUE))
+        bound_ms, bound_by = mae_clip_bound(R, N)
+        log(f"[kernel] mae_clip [{R}, {N}]: max_abs_err={err:.3e} "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+            f"(no single PyTorch call computes it) bound_ms={bound_ms:.6f} ({bound_by})")
+        if record is None:
+            record = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}
+    record["max_abs_err"] = worst
+    return record
+
+
+def expected_train_launches(config, layers: int) -> tuple[dict, dict]:
+    """Each kernel's launches in one ``train(config)`` on synthetic wells,
+    from the data sizes: windows per well, the 64/16/20 split, whole train
+    batches, padded val batches each epoch, then the test split once at
+    the final eval's batch (256 when it is over 4 train batches)."""
+    n = config.synthetic_wells * (config.synthetic_steps - config.window + 1)
+    n_train, n_val = int(round(n * 0.64)), int(round(n * 0.16))
+    n_test = n - n_train - n_val
+    bs = config.batch_size
+    eval_bs = max(bs, 256) if n_test > 4 * bs else bs
+    train_b, val_b, test_b = n_train // bs, -(-n_val // bs), -(-n_test // eval_bs)
+    epochs = config.max_epochs
+    want = {
+        "lstm_fwd": layers * (train_b + val_b) * epochs + layers * test_b,
+        "lstm_bwd": layers * train_b * epochs,
+        "mae_clip": (train_b + val_b) * epochs + test_b,
+    }
+    sizes = {"windows": n, "train": n_train, "val": n_val, "test": n_test,
+             "train_batches": train_b, "val_batches": val_b,
+             "test_batches": test_b, "test_batch": eval_bs}
+    return want, sizes
+
+
+def phase_train(torch, root: str, smi: str) -> dict:
+    """Train LSTM-64 (3 epochs) and the stacked LSTM (2 epochs) through
+    ``train(TrainJobConfig(...))`` at its defaults into ``root``; returns the
+    kernels' launches summed over both counted runs."""
+    from tpuflow_torch.api.config import TrainJobConfig
+    from tpuflow_torch.api.train_api import train
+    from tpuflow_torch.data.pipeline import prepare_windowed
+    from tpuflow_torch.data.synthetic import generate_wells
+    from tpuflow_torch.kernels import KERNELS
+
+    totals = dict.fromkeys(KERNELS, 0)
+    models = []
+    for model_name, layers, epochs in (("lstm", 1, 3), ("stacked_lstm", 2, 2)):
+        config = TrainJobConfig(model=model_name, max_epochs=epochs,
+                                storage_path=root, verbose=False)
+        want, sizes = expected_train_launches(config, layers)
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        report = train(config)  # device left at its default: cuda
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {name: k.launches for name, k in KERNELS.items()}
+        history = report.result.history
+        log(f"[train] {model_name:12s} {epochs} epochs in {seconds:.2f} s on "
+            f"{report.device}; data {sizes}")
+        for h in history:
+            log(f"[train] {model_name:12s} epoch {h['epoch']}: loss={h['loss']:.6f} "
+                f"val_loss={h['val_loss']:.6f} time_s={h['time']:.3f}")
+        log(f"[train] {model_name:12s} test_loss={report.test_loss:.6f} "
+            f"test_mae={report.test_mae:.2f} gilbert_mae={report.gilbert_mae:.2f} "
+            f"stb/day; fit samples/s={report.samples_per_sec:.1f} (host clock over "
+            f"the fit, eval included; card: {smi}); program {report.epoch_program}")
+        log(f"[train] {model_name:12s} launches {got}, expected {want}")
+        if got != want:
+            raise AssertionError(f"{model_name}: kernel launches {got} != {want}")
+        if len(history) != epochs or not all(
+            np.isfinite([h["loss"], h["val_loss"]]).all() for h in history
+        ) or not np.isfinite(report.test_loss):
+            raise AssertionError(f"{model_name}: non-finite or missing losses {history}")
+        if model_name == "lstm" and not report.test_mae < report.gilbert_mae:
+            raise AssertionError(
+                f"LSTM-64 test MAE {report.test_mae:.2f} does not beat the Gilbert "
+                f"baseline {report.gilbert_mae:.2f}")
+        for k in totals:
+            totals[k] += got[k]
+        models.append((model_name, report.result.model))
+
+    # After the counted runs: gradients, steady steps, profile.
+    splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
+                              window=T, seed=0, teacher_forcing=True)
+    x = torch.from_numpy(splits.train.x).cuda()
+    y = torch.from_numpy(splits.train.y).cuda()
+    for model_name, model in models:
+        check_gradients(torch, model_name, model, x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+        steady_steps(torch, model_name, model, x, y, smi)
+    return totals
+
+
+def check_gradients(torch, model_name, model, x, y) -> None:
+    """One batch's parameter gradients through the kernels against the plain
+    path (``model(x, plain=True)`` and the loss's plain version)."""
+    from tpuflow_torch.core.losses import CLIP_VALUE, mae_clip
+    from tpuflow_torch.kernels.losses import mae_clip_reference
+
+    grads = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        pred = model(x, plain=plain)
+        if plain:
+            loss = mae_clip_reference(y.reshape(1, -1), pred.reshape(1, -1), CLIP_VALUE)[0]
+        else:
+            loss = mae_clip(y, pred)
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    errs = {n: normwise_err(grads[0][n], grads[1][n]) for n in grads[1]}
+    log(f"[train] {model_name:12s} one batch, gradients kernels vs plain path: "
+        f"normwise err " + ", ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" (tolerance {GRAD_TOL})")
+    bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"{model_name}: kernel gradients disagree with the plain path: {bad}")
+    model.zero_grad(set_to_none=True)
+
+
+def steady_steps(torch, model_name, model, x, y, smi) -> None:
+    """Steady train steps at batch 20 (keras_sgd, mae_clip): samples/s on the
+    host clock ending in a synchronise, then one profiled window for device
+    time by kernel and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_train_step
+
+    step = make_train_step(model, keras_sgd().bind(model.parameters()), mae_clip)
+    n_batches = len(x) // TRAIN_BATCH
+
+    def run(k):
+        for i in range(k):
+            s = (i % n_batches) * TRAIN_BATCH
+            step(x[s : s + TRAIN_BATCH], y[s : s + TRAIN_BATCH])
+
+    run(10)
+    torch.cuda.synchronize()
+    steps = 200
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"[train] {model_name:12s} steady steps at batch {TRAIN_BATCH}: "
+        f"{steps * TRAIN_BATCH / dt:.1f} samples/s, {dt / steps * 1e3:.3f} ms/step "
+        f"(host clock over {steps} steps ending in a synchronise; card: {smi})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(20)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_ms_by_kernel(prof)
+    busy_ms = sum(by_kernel.values())
+    idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured"
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[train] {model_name:12s} profiled 20 steps: wall_ms={wall_ms:.3f} "
+        f"device_busy_ms={busy_ms:.3f} idle_share={idle} kernels={len(by_kernel)}; "
+        "by kernel (ms over 20 steps): "
+        + "; ".join(f"{k[:60]}={v:.4f}" for k, v in top))
+
+
 def _columns(n_wells: int, steps: int, seed: int, well_ids: bool) -> dict:
     from tpuflow_torch.data.synthetic import generate_wells, wells_to_table
 
@@ -192,7 +520,9 @@ def _post(url: str, spec: dict) -> tuple[int, dict]:
 
 
 def phase_serve(torch, root: str, smi: str) -> int:
-    """Serve both artifacts over HTTP; returns lstm_fwd's launches."""
+    """Serve the trained artifacts in ``root`` (no well column in their
+    sidecars: each request is one series) and two with random weights (well
+    column "well") over HTTP; returns lstm_fwd's launches."""
     from tpuflow_torch.api.predict_api import save_artifact_meta
     from tpuflow_torch.convert import model_leaves
     from tpuflow_torch.data.synthetic import write_csv
@@ -212,8 +542,8 @@ def phase_serve(torch, root: str, smi: str) -> int:
         "schema_columns": [{"name": n, "kind": k} for n, k in SCHEMA],
         "target": "flow",
     }
-    artifacts = [("lstm64", "lstm", 1), ("stacked", "stacked_lstm", 2)]
-    for seed, (name, model_name, _) in enumerate(artifacts):
+    random_artifacts = [("lstm64", "lstm", 1, True), ("stacked", "stacked_lstm", 2, True)]
+    for seed, (name, model_name, _, _) in enumerate(random_artifacts):
         model = build_model(model_name, len(FEATURES))
         model.reset_parameters(torch.Generator().manual_seed(seed))
         StoreCheckpointer(root, name).maybe_save(1, model_leaves(model), val_loss=0.0)
@@ -223,12 +553,14 @@ def phase_serve(torch, root: str, smi: str) -> int:
     csv_cols = _columns(2, 300, 4, well_ids=True)
     csv_path = os.path.join(root, "two_wells.csv")
     write_csv(csv_path, csv_cols, [n for n, _ in SCHEMA if n != "flow"])
-    requests = [  # (label, payload, columns, windows)
+    requests = [  # (label, payload, columns, windows grouped by well)
         ("8 wells + well column", "columns", _columns(8, 512, 1, True), 8 * 489),
         ("one well", "columns", _columns(1, 512, 2, False), 489),
         ("ragged tail, 11 wells", "columns", _columns(11, 512, 3, True), 11 * 489),
         ("csv path, 2 wells", "data", csv_cols, 2 * 277),
     ]
+    trained = [("lstm", "lstm", 1, False), ("stacked_lstm", "stacked_lstm", 2, False)]
+    artifacts = trained + random_artifacts
 
     server = make_server("127.0.0.1", 0)  # device left at its default: cuda
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -240,8 +572,12 @@ def phase_serve(torch, root: str, smi: str) -> int:
         for k in KERNELS.values():
             k.launches = 0
         lstm_scan = KERNELS["lstm_fwd"]
-        for name, model_name, layers in artifacts:
+        for name, model_name, layers, grouped in artifacts:
             for label, kind, cols, windows in requests:
+                if not grouped:
+                    if kind == "data":  # the CSV's well column is not in its schema
+                        continue
+                    windows = len(cols["pressure"]) - T + 1
                 spec = {"storagePath": root, "model": name}
                 if kind == "data":
                     spec["data"] = csv_path
@@ -254,7 +590,7 @@ def phase_serve(torch, root: str, smi: str) -> int:
                 launched = lstm_scan.launches - before
                 chunks = -(-windows // BATCH)
                 rows = len(cols["pressure"])
-                log(f"[serve] {model_name:12s} {label:22s} status={status} "
+                log(f"[serve] {name:12s} {label:22s} status={status} "
                     f"windows={body.get('count')} latency_ms={seconds * 1e3:.1f} "
                     f"rows/s={rows / seconds:.0f} windows/s={windows / seconds:.0f} "
                     f"launches={launched} (card: {smi})")
@@ -287,20 +623,20 @@ def phase_serve(torch, root: str, smi: str) -> int:
         raise AssertionError(f"service counted {metrics}")
 
     # The same Predictor's plain path on the card (after the counted run).
-    atol = PRED_ATOL_NORM * pre["target_std"]
     for name, model_name, label, kind, cols, y in answers:
         pred = server.predictor.get_predictor(root, name)
+        atol = PRED_ATOL_NORM * pred._meta["preprocessor"]["target_std"]
         if kind == "data":
             cols = pred.columns_from_csv(csv_path)
         x, _ = pred.prepare_columns(cols)
         plain = pred.forward_prepared(x, plain=True)
         err = float(np.abs(plain - y).max())
-        log(f"[serve] {model_name:12s} {label:22s} served vs plain path: max abs "
+        log(f"[serve] {name:12s} {label:22s} served vs plain path: max abs "
             f"err {err:.3e} (tolerance {atol:.3e} = {PRED_ATOL_NORM} x target_std)")
         if err > atol:
             raise AssertionError(f"{model_name} {label}: served predictions "
                                  f"disagree with the plain path ({err:.3e})")
-    phase_breakdown(torch, server.predictor, root, requests[0][2], artifacts, smi)
+    phase_breakdown(torch, server.predictor, root, requests[0][2], random_artifacts, smi)
     return launches
 
 
@@ -308,10 +644,9 @@ def phase_breakdown(torch, service, root, cols, artifacts, smi) -> None:
     """Where a warm request's time goes, in process (after the counted run):
     host-clock medians of its three stages, then one profiled forward for
     device time by kernel and the device's idle share of that window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, model_name, _ in artifacts:
+    for name, model_name, *_ in artifacts:
         pred = service.get_predictor(root, name)
         stages = {"prepare_ms": [], "forward_ms": [], "encode_ms": []}
         for _ in range(5):
@@ -331,11 +666,7 @@ def phase_breakdown(torch, service, root, cols, artifacts, smi) -> None:
             pred.forward_prepared(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = {}
-        for evt in prof.key_averages():  # device-side events only: a CPU op
-            us = evt.self_device_time_total  # also reports its kernels' time
-            if evt.device_type == DeviceType.CUDA and us > 0:
-                by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
+        by_kernel = device_ms_by_kernel(prof)
         busy_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         log(f"[breakdown] {model_name:12s} {len(x)} windows, warm, median of 5: "
@@ -362,24 +693,23 @@ def main() -> int:
         f"count {torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     phase_build()
-    record = phase_kernels(torch)
+    records = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="tpuflow_torch_smoke_") as root:
-        launches = phase_serve(torch, root, smi)
-    if launches == 0:
+        launches = phase_train(torch, root, smi)
+        serve_launches = phase_serve(torch, root, smi)
+    if serve_launches == 0:
         raise AssertionError("lstm_fwd was not launched on the serving path")
-    kernels = [{
-        "name": "lstm_fwd",
-        "route": "cuda",
-        "source": "tpuflow_torch/kernels/csrc/lstm_fwd.cu",
-        "replaces": "tpuflow/kernels/lstm.py:68",
-        "launches": launches,
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-        "bound_ms": record["bound_ms"],
-        "bound_by": record["bound_by"],
-        "library_ms": record["library_ms"],
-    }]
+    missed = [k for k, n in launches.items() if n == 0]
+    if missed:
+        raise AssertionError(f"not launched on the training path: {missed}")
+    kernels = [
+        {"name": name, "route": "cuda",
+         "source": f"tpuflow_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+         "launches": launches[name], **records[name]}
+        for name, replaces in (("lstm_fwd", "tpuflow/kernels/lstm.py:68"),
+                               ("lstm_bwd", "tpuflow/kernels/lstm.py:97"),
+                               ("mae_clip", "tpuflow/kernels/losses.py:33"))
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,10 @@ def test_port_and_chip_smoke_import_without_jax_or_tpuflow():
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from tpuflow_torch import resolve_device
+    from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.api.predict_api import Predictor
+    from tpuflow_torch.api.train_api import train
+    from tpuflow_torch.cli import main as cli_main
     from tpuflow_torch.serve import PredictService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -57,6 +60,11 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         Predictor.load(str(tmp_path), "any")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PredictService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(TrainJobConfig(max_epochs=1, storage_path=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["", "", "flow", str(tmp_path), "--epochs", "1", "--quiet"])
+    assert not os.path.exists(os.path.join(str(tmp_path), "models"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

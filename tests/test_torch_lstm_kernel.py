@@ -14,7 +14,12 @@ import pytest
 import torch
 
 from tpuflow_torch.kernels import KERNELS
-from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
+from tpuflow_torch.kernels.lstm import (
+    lstm_scan,
+    lstm_scan_backward,
+    lstm_scan_backward_reference,
+    lstm_scan_reference,
+)
 from tpuflow_torch.models.lstm import lstm_step
 
 ATOL = 1e-5  # f32, as tests/test_kernels.py holds the Pallas kernel
@@ -73,11 +78,135 @@ def test_shape_mismatch_raises():
     assert KERNELS["lstm_fwd"] is lstm_scan
 
 
+@pytest.mark.parametrize("B,H", [(5, 16), (1, 8), (3, 4)])
+def test_autograd_matches_jax_grad(B, H):
+    """Port autograd through ``lstm_scan`` (CPU: the plain backward) against
+    ``jax.grad`` through the Pallas custom VJP (interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpuflow.kernels import lstm_scan as jax_lstm_scan
+
+    xw, wh, b = _case(8, B, H, seed=20 + B + H)
+    w = np.random.default_rng(B * H).standard_normal((8, B, H)).astype(np.float32)
+    want = jax.grad(
+        lambda *a: jnp.sum(jax_lstm_scan(*a) * w), argnums=(0, 1, 2)
+    )(jnp.asarray(xw), jnp.asarray(wh), jnp.asarray(b))
+    args = [torch.from_numpy(a).requires_grad_() for a in (xw, wh, b)]
+    hs = lstm_scan(*args)
+    assert hs.grad_fn is not None
+    (hs * torch.from_numpy(w)).sum().backward()
+    for got, ref in zip(args, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_backward_reference_matches_autograd_through_the_reference():
+    xw, wh, b = (torch.from_numpy(a).requires_grad_() for a in _case(7, 4, 12, seed=5))
+    dhs = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((7, 4, 12)).astype(np.float32)
+    )
+    hs, cs = lstm_scan_reference(xw, wh, b)
+    want = torch.autograd.grad(hs, (xw, wh, b), dhs)
+    with torch.no_grad():
+        got = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+def test_card_path_output_carries_a_grad_fn(monkeypatch):
+    """The CUDA branch of ``lstm_scan`` returns a differentiable ``hs``: the
+    forward launcher gets a cell-state buffer, and ``backward()`` reaches
+    ``W_h`` and ``b`` through the backward launcher, whose per-block
+    partials are summed. The launchers are replaced by fakes that fill
+    their outputs with the plain versions' results, so this runs without a
+    card; the kernels themselves are held to those versions by the
+    ``cuda`` tests below."""
+    from tpuflow_torch.kernels import lstm as lstm_mod
+
+    def fake_fwd(xw, wh, b, hs, cs):
+        assert cs is not None, "training needs the cell states"
+        ref_hs, ref_cs = lstm_scan_reference(xw, wh, b)
+        hs.copy_(ref_hs)
+        cs.copy_(ref_cs)
+
+    def fake_bwd(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts):
+        dxw_r, dwh_r, db_r = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+        dxw.copy_(dxw_r)
+        dwh_parts.zero_()
+        db_parts.zero_()
+        dwh_parts[0] = dwh_r / 2  # the wrapper must sum the partials
+        dwh_parts[-1] += dwh_r / 2
+        db_parts[0] = db_r
+
+    monkeypatch.setattr(lstm_mod, "_runs_plain", lambda t: False)
+    monkeypatch.setattr(lstm_mod, "_fwd_kernel", fake_fwd)
+    monkeypatch.setattr(lstm_mod, "_bwd_kernel", fake_bwd)
+    monkeypatch.setattr(lstm_mod, "_bwd_blocks", lambda B, H: 3)
+    xw, wh, b = (torch.from_numpy(a).requires_grad_() for a in _case(5, 3, 8, seed=7))
+    fwd0, bwd0 = lstm_scan.launches, lstm_scan_backward.launches
+    hs = lstm_scan(xw, wh, b)
+    assert hs.grad_fn is not None
+    hs.sum().backward()
+    assert (lstm_scan.launches, lstm_scan_backward.launches) == (fwd0 + 1, bwd0 + 1)
+    ref = [t.detach().clone().requires_grad_() for t in (xw, wh, b)]
+    lstm_scan_reference(*ref)[0].sum().backward()
+    for got, want in zip((xw, wh, b), ref):
+        torch.testing.assert_close(got.grad, want.grad, atol=ATOL, rtol=0)
+    with torch.no_grad():  # serving: no grad, no cell-state buffer
+        monkeypatch.setattr(lstm_mod, "_fwd_kernel", lambda xw, wh, b, hs, cs: hs.zero_())
+        assert lstm_scan(xw, wh, b).grad_fn is None
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _normwise_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 64), (20, 64), (37, 64), (300, 64), (37, 16), (5, 76)])
+def test_cuda_backward_matches_plain_version(cuda_device, B, H):
+    """``lstm_bwd`` against ``lstm_scan_backward_reference``. Tolerances,
+    normwise (max abs error over max abs value): dxw 1e-5 (24 dependent
+    steps, each summing 4H products in another order), dW_h and db 1e-4
+    (sums over B*T products, in per-block then block-axis order)."""
+    xw, wh, b = (torch.from_numpy(a).to(cuda_device) for a in _case(24, B, H, seed=B))
+    dhs = torch.randn((24, B, H), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(B))
+    hs, cs = lstm_scan_reference(xw, wh, b)
+    launches = lstm_scan_backward.launches
+    got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert lstm_scan_backward.launches == launches + 1
+    want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert g.shape == w.shape
+        assert _normwise_err(g, w) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_runs_both_kernels(cuda_device):
+    xw, wh, b = (torch.from_numpy(a).to(cuda_device).requires_grad_()
+                 for a in _case(24, 20, 64, seed=11))
+    fwd0, bwd0 = lstm_scan.launches, lstm_scan_backward.launches
+    hs = lstm_scan(xw, wh, b)
+    assert hs.grad_fn is not None
+    (hs * hs).sum().backward()
+    torch.cuda.synchronize()
+    assert (lstm_scan.launches, lstm_scan_backward.launches) == (fwd0 + 1, bwd0 + 1)
+    ref = [t.detach().clone().requires_grad_() for t in (xw, wh, b)]
+    ref_hs = lstm_scan_reference(*ref)[0]
+    (ref_hs * ref_hs).sum().backward()
+    for got, want in zip((xw, wh, b), ref):
+        assert _normwise_err(got.grad, want.grad) <= 1e-4
+    with pytest.raises(ValueError, match="multiple of 4 up to 76"):
+        lstm_scan(*(torch.from_numpy(a).to(cuda_device).requires_grad_()
+                    for a in _case(2, 3, 80)))
 
 
 @pytest.mark.cuda

@@ -48,6 +48,30 @@ def test_forward_matches_jax(layers, backend, readout):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("layers,backend", [(1, "pallas"), (2, "xla")])
+def test_loss_gradients_match_jax(layers, backend):
+    """Gradients of the clipped-MAE loss reach every parameter (``w_x``
+    through the projection matmul, ``w_h`` and ``b`` through ``lstm_scan``'s
+    backward, and the head) and equal ``jax.grad`` on copied params."""
+    from tpuflow.core.losses import mae_clip as jax_mae_clip
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.convert import params_to_flax
+
+    model, params, x = _jax_model_and_params(layers, backend, "sequence")
+    # Offset, so that the signs of the errors do not balance to a zero
+    # head-bias gradient.
+    y = (np.random.default_rng(5).standard_normal((3, 6)) + 1).astype(np.float32)
+    want = jax.grad(lambda p: jax_mae_clip(y, model.apply({"params": p}, x)))(params)
+    port = LSTMRegressor(5, hidden=16, num_layers=layers, backend=backend)
+    port.load_state_dict(params_from_flax(jax.device_get(params)))
+    mae_clip(torch.from_numpy(y), port(torch.from_numpy(x))).backward()
+    got = params_to_flax({n: p.grad for n, p in port.named_parameters()})
+    jax.tree_util.tree_map(
+        lambda g, w: np.testing.assert_allclose(g, np.asarray(w), atol=ATOL), got, want
+    )
+    assert all(p.grad.abs().sum() > 0 for p in port.parameters())
+
+
 def test_leaf_order_and_round_trip_match_flax():
     _, params, _ = _jax_model_and_params(2, "xla", "sequence")
     port = build_model("stacked_lstm", 5, hidden=16)

@@ -1,0 +1,284 @@
+// Backward LSTM recurrence on Hopper (sm_90a), float32.
+//
+// Replaces tpuflow/kernels/lstm.py::_bwd_kernel, the Pallas TPU kernel that
+// tpuflow/kernels/lstm.py::_bwd launches with pl.pallas_call for the custom
+// VJP of lstm_scan. Same function: from zero carries, for t = T-1 down to 0,
+// with h_{t-1} = hs[t-1] and c_{t-1} = cs[t-1] (both zero at t = 0)
+//     z   = xw_t + h_{t-1} @ W_h + b         (gates recomputed, f32)
+//     i, f, o = sigmoid(z_i, z_f, z_o);  g = tanh(z_g);  c = cs[t]
+//     dh  = dhs[t] + dh_carry
+//     do  = dh * tanh(c)
+//     dc  = dc_carry + dh * o * (1 - tanh(c)^2)
+//     dz  = [dc*g * i(1-i), dc*c_{t-1} * f(1-f), dc*i * (1-g^2), do * o(1-o)]
+//     dxw[t] = dz;  dW_h += h_{t-1}^T dz;  db += sum_rows dz
+//     dh_carry = dz @ W_h^T;  dc_carry = dc * f
+// Each block writes its own dW_h and db partial, [grid, H, 4H] and
+// [grid, 4H]; the caller sums them over the block axis in a fixed order, as
+// the JAX wrapper sums the per-tile partials outside its kernel. No float
+// atomics: gradients are the same from run to run.
+//
+// What bounds it on an H100: per row and step it does three H x 4H products
+// (the recomputed h @ W_h, dz @ W_h^T and h^T dz), 3 * 2 * H * 4H = 98,304
+// operations at H = 64, against 7H floats of xw/hs/cs/dhs read and 4H of dxw
+// written. On the CUDA cores' f32 rate that is operations, and the work is
+// a chain of T dependent steps per row, as in the forward kernel.
+//
+// Design (simple and right first; tensor cores and tuning are later work):
+// - one block per tile of kRowsPerThread * blockDim.y batch rows, with the
+//   time loop inside it, from t = T-1 down to 0, as lstm_fwd.cu steps forward;
+// - thread (j, y) owns hidden unit j of kRowsPerThread rows: it recomputes
+//   the four gate columns j, H+j, 2H+j, 3H+j, so the gate math and the dc
+//   and dh carries stay in its registers in f32;
+// - dh = dz @ W_h^T needs all 4H columns of dz for a row, so dz goes through
+//   shared memory between two barriers. dz and the h_{t-1} tile are double
+//   buffered, so two barriers a step suffice;
+// - W_h lives in shared memory with its row stride padded to 4H+1 (an odd
+//   count): thread j reading row j for dz @ W_h^T then hits 32 distinct
+//   banks, where the [H, 4H] stride would put a warp on one bank;
+// - the dW_h tile (H x 4H f32, 64 KB at H = 64) and db live in shared
+//   memory; each thread owns the entries tid, tid + nthreads, ... and adds
+//   h_{t-1}^T dz of the tile to them every step, then writes them once;
+// - shared memory at H = 64 and 16 rows a block: W_h 65,792 B, dW_h 65,536,
+//   the dz double buffer 32,768, the h double buffer 8,192, db 1,024; 173 KB
+//   of the 227 KB. The ceiling is H <= 76 (tpuflow_lstm_bwd_max_hidden);
+// - rows past the batch edge carry zeros and contribute nothing.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRowsPerThread = 4;
+constexpr int kThreadsPerBlock = 256;
+constexpr size_t kMaxSharedBytes = 232448;  // what one block may use on sm_90
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+int tile_rows_for(int H) { return kRowsPerThread * (kThreadsPerBlock / H); }
+
+size_t smem_bytes_for(int H) {
+  const size_t H4 = 4 * (size_t)H;
+  const size_t rows = (size_t)tile_rows_for(H);
+  return sizeof(float) * ((size_t)H * (H4 + 1)  // W_h, padded rows
+                          + 2 * rows * H        // h_{t-1}, double buffered
+                          + 2 * rows * H4       // dz, double buffered
+                          + (size_t)H * H4      // dW_h partial
+                          + H4);                // db partial
+}
+
+bool supported(int H) {
+  return H > 0 && H % 4 == 0 && H <= kThreadsPerBlock &&
+         smem_bytes_for(H) <= kMaxSharedBytes;
+}
+
+__global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
+                                    const float* __restrict__ wh,
+                                    const float* __restrict__ bias,
+                                    const float* __restrict__ hs,
+                                    const float* __restrict__ cs,
+                                    const float* __restrict__ dhs,
+                                    float* __restrict__ dxw,
+                                    float* __restrict__ dwh_part,
+                                    float* __restrict__ db_part,
+                                    int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = kRowsPerThread;
+  const int H4 = 4 * H;
+  const int WS = H4 + 1;  // padded row stride of W_h
+  const int tile_rows = R * blockDim.y;
+  float* w_s = smem;                        // [H, 4H+1]
+  float* h_s = w_s + H * WS;                // [2, tile_rows, H]
+  float* dz_s = h_s + 2 * tile_rows * H;    // [2, tile_rows, 4H]
+  float* dw_s = dz_s + 2 * tile_rows * H4;  // [H, 4H]
+  float* db_s = dw_s + H * H4;              // [4H]
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int e = tid; e < H * H4; e += nthreads) {
+    const int k = e / H4;
+    w_s[k * WS + (e - k * H4)] = wh[e];
+    dw_s[e] = 0.0f;
+  }
+  for (int n = tid; n < H4; n += nthreads) db_s[n] = 0.0f;
+
+  const int j = threadIdx.x;
+  const int r0 = threadIdx.y * R;  // this thread's first row in the tile
+  const int64_t tile0 = (int64_t)blockIdx.x * tile_rows;
+  const float bi = bias[j];
+  const float bf = bias[H + j];
+  const float bg = bias[2 * H + j];
+  const float bo = bias[3 * H + j];
+
+  float dh_carry[R], dc_carry[R];  // from step t+1, f32
+#pragma unroll
+  for (int r = 0; r < R; ++r) dh_carry[r] = dc_carry[r] = 0.0f;
+
+  for (int k = 0; k < T; ++k) {
+    const int t = T - 1 - k;
+    float* hp = h_s + (k & 1) * tile_rows * H;   // h_{t-1} of the tile
+    float* dz = dz_s + (k & 1) * tile_rows * H4;  // dz of the tile
+
+    // (1) The tile's h_{t-1}: zero at t = 0 and past the batch edge.
+    for (int i = tid; i < tile_rows * H; i += nthreads) {
+      const int r = i / H;
+      const int64_t row = tile0 + r;
+      hp[i] = (t > 0 && row < B)
+                  ? hs[((int64_t)(t - 1) * B + row) * H + (i - r * H)]
+                  : 0.0f;
+    }
+    __syncthreads();
+
+    // (2) Recompute h_{t-1} @ W_h for the four gate columns of unit j.
+    float ai[R], af[R], ag[R], ao[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
+    for (int kk = 0; kk < H; kk += 4) {
+      float4 hv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        hv[r] = *reinterpret_cast<const float4*>(hp + (r0 + r) * H + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* w = w_s + (kk + q) * WS;
+        const float wi = w[j];
+        const float wf = w[H + j];
+        const float wg = w[2 * H + j];
+        const float wo = w[3 * H + j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float hk = lane_of(hv[r], q);
+          ai[r] = fmaf(hk, wi, ai[r]);
+          af[r] = fmaf(hk, wf, af[r]);
+          ag[r] = fmaf(hk, wg, ag[r]);
+          ao[r] = fmaf(hk, wo, ao[r]);
+        }
+      }
+    }
+
+    // Gates and dz, in the reference's order; dz goes to dxw[t] and to
+    // shared memory for the products below.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t row = tile0 + r0 + r;
+      float dzi = 0.0f, dzf = 0.0f, dzg = 0.0f, dzo = 0.0f;
+      if (row < B) {
+        const int64_t o4 = ((int64_t)t * B + row) * H4;
+        const int64_t o1 = ((int64_t)t * B + row) * H + j;
+        const float ig = sigmoid_f32((xw[o4 + j] + ai[r]) + bi);
+        const float fg = sigmoid_f32((xw[o4 + H + j] + af[r]) + bf);
+        const float gg = tanhf((xw[o4 + 2 * H + j] + ag[r]) + bg);
+        const float og = sigmoid_f32((xw[o4 + 3 * H + j] + ao[r]) + bo);
+        const float c = cs[o1];
+        const float c_prev = t > 0 ? cs[o1 - (int64_t)B * H] : 0.0f;
+        const float tc = tanhf(c);
+        const float dh = dhs[o1] + dh_carry[r];
+        const float d_o = dh * tc;
+        const float dc = dc_carry[r] + dh * og * (1.0f - tc * tc);
+        dzi = dc * gg * ig * (1.0f - ig);
+        dzf = dc * c_prev * fg * (1.0f - fg);
+        dzg = dc * ig * (1.0f - gg * gg);
+        dzo = d_o * og * (1.0f - og);
+        dc_carry[r] = dc * fg;
+        dxw[o4 + j] = dzi;
+        dxw[o4 + H + j] = dzf;
+        dxw[o4 + 2 * H + j] = dzg;
+        dxw[o4 + 3 * H + j] = dzo;
+      }
+      float* dzr = dz + (r0 + r) * H4;
+      dzr[j] = dzi;
+      dzr[H + j] = dzf;
+      dzr[2 * H + j] = dzg;
+      dzr[3 * H + j] = dzo;
+    }
+    __syncthreads();
+
+    // (3) dh for step t-1: dh[r, j] = sum_n dz[r, n] * W_h[j, n].
+#pragma unroll
+    for (int r = 0; r < R; ++r) dh_carry[r] = 0.0f;
+    const float* wj = w_s + j * WS;
+    for (int n = 0; n < H4; n += 4) {
+      const float w0 = wj[n], w1 = wj[n + 1], w2 = wj[n + 2], w3 = wj[n + 3];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 d = *reinterpret_cast<const float4*>(dz + (r0 + r) * H4 + n);
+        dh_carry[r] = fmaf(d.x, w0, dh_carry[r]);
+        dh_carry[r] = fmaf(d.y, w1, dh_carry[r]);
+        dh_carry[r] = fmaf(d.z, w2, dh_carry[r]);
+        dh_carry[r] = fmaf(d.w, w3, dh_carry[r]);
+      }
+    }
+
+    // (4) dW_h += h_{t-1}^T dz and db += sum_rows dz over the tile.
+    for (int e = tid; e < H * H4; e += nthreads) {
+      const int kq = e / H4;
+      const int n = e - kq * H4;
+      float acc = dw_s[e];
+      for (int r = 0; r < tile_rows; ++r)
+        acc = fmaf(hp[r * H + kq], dz[r * H4 + n], acc);
+      dw_s[e] = acc;
+    }
+    for (int n = tid; n < H4; n += nthreads) {
+      float acc = db_s[n];
+      for (int r = 0; r < tile_rows; ++r) acc += dz[r * H4 + n];
+      db_s[n] = acc;
+    }
+  }
+
+  // Each thread wrote only its own entries: no barrier before the store.
+  float* dwp = dwh_part + (int64_t)blockIdx.x * H * H4;
+  for (int e = tid; e < H * H4; e += nthreads) dwp[e] = dw_s[e];
+  for (int n = tid; n < H4; n += nthreads)
+    db_part[(int64_t)blockIdx.x * H4 + n] = db_s[n];
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest hidden size the kernel takes (a multiple of 4).
+int tpuflow_lstm_bwd_max_hidden(void) {
+  int best = 0;
+  for (int H = 4; H <= kThreadsPerBlock; H += 4)
+    if (supported(H)) best = H;
+  return best;
+}
+
+// Blocks for batch B at hidden size H (the leading size of the partials),
+// or 0 when the kernel does not take H.
+int tpuflow_lstm_bwd_blocks(int B, int H) {
+  if (B <= 0 || !supported(H)) return 0;
+  const int rows = tile_rows_for(H);
+  return (B + rows - 1) / rows;
+}
+
+// Launch shape for hidden size H: blockDim (H, y) with y = 256 / H, and
+// kRowsPerThread * y rows a block. Returns 0, or the CUDA error code.
+int tpuflow_lstm_bwd_f32(const float* xw, const float* wh, const float* b,
+                         const float* hs, const float* cs, const float* dhs,
+                         float* dxw, float* dwh_part, float* db_part, int T,
+                         int B, int H, void* stream) {
+  if (T <= 0 || B <= 0) return 0;
+  if (!supported(H)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_for(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(H, kThreadsPerBlock / H);
+  const dim3 grid((unsigned)tpuflow_lstm_bwd_blocks(B, H));
+  lstm_bwd_f32_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      xw, wh, b, hs, cs, dhs, dxw, dwh_part, db_part, T, B, H);
+  return (int)cudaGetLastError();
+}
+
+const char* tpuflow_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

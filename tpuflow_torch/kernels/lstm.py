@@ -1,22 +1,31 @@
-"""Fused LSTM recurrence: the hand-written Hopper kernel and its plain version.
+"""Fused LSTM recurrence: the hand-written Hopper kernels and their plain versions.
 
-Counterpart of ``tpuflow/kernels/lstm.py::lstm_scan`` (forward only: the
-serving path). The surrounding layer (``tpuflow_torch.models.lstm``) hoists
-the input projection ``x @ W_x`` out of the recurrence as one matmul; what
-remains, ``h @ W_h`` plus the gate math for every step, runs here.
+Counterpart of ``tpuflow/kernels/lstm.py::lstm_scan``, forward and backward.
+The surrounding layer (``tpuflow_torch.models.lstm``) hoists the input
+projection ``x @ W_x`` out of the recurrence as one matmul; what remains,
+``h @ W_h`` plus the gate math for every step, runs here.
 
-Kernel: ``csrc/lstm_fwd.cu``, which replaces the Pallas TPU kernel
-``tpuflow/kernels/lstm.py::_fwd_kernel`` (launched by ``_fwd``). On an H100
-it is bound by operations: at the serving shape (T=24, B=4096, H=64) the
-recurrent product is 3.2 GFLOP on the f32 CUDA cores against 125 MB of
-``xw`` read and ``hs`` written. Its design keeps ``W_h`` in shared memory
-for all steps, ``h`` in shared memory, ``c`` in registers, and gives each
-thread the four gate columns of one hidden unit so the gate math needs no
-exchange between threads (the source says more).
+Kernels:
+- ``csrc/lstm_fwd.cu`` replaces the Pallas TPU kernel
+  ``tpuflow/kernels/lstm.py::_fwd_kernel`` (launched by ``_fwd``). On an H100
+  it is bound by operations: at the serving shape (T=24, B=4096, H=64) the
+  recurrent product is 3.2 GFLOP on the f32 CUDA cores against 125 MB of
+  ``xw`` read and ``hs`` written. It keeps ``W_h`` in shared memory for all
+  steps, ``h`` in shared memory, ``c`` in registers, and gives each thread
+  the four gate columns of one hidden unit so the gate math needs no
+  exchange between threads.
+- ``csrc/lstm_bwd.cu`` replaces ``_bwd_kernel`` (launched by ``_bwd``): the
+  reverse-time recurrence with the gates recomputed from ``(xw, h_{t-1})``.
+  Three ``H x 4H`` products per row and step bound it by operations; it
+  writes ``dxw`` and one ``dW_h``/``db`` partial per block, which
+  ``lstm_scan_backward`` sums over the block axis in a fixed order.
 
-``lstm_scan`` on a CUDA tensor launches that kernel or raises; on a CPU
-tensor it runs ``lstm_scan_reference``, the plain PyTorch version. There is
-no fallback from one to the other.
+``lstm_scan`` is differentiable: when gradients are needed it runs as a
+``torch.autograd.Function`` whose forward keeps the cell states and whose
+backward is ``lstm_scan_backward``. On a CUDA tensor each wrapper launches
+its kernel or raises; on a CPU tensor it runs the plain PyTorch version
+(``lstm_scan_reference``, ``lstm_scan_backward_reference``). There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -28,9 +37,8 @@ import torch
 
 from tpuflow_torch.kernels import _build
 
-_STEM = "lstm_fwd"
 _count_lock = threading.Lock()
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _check_shapes(xw, wh, b, cs_out) -> tuple[int, int, int]:
@@ -49,6 +57,100 @@ def _check_shapes(xw, wh, b, cs_out) -> tuple[int, int, int]:
             f"{tuple(cs_out.shape)}"
         )
     return T, B, H
+
+
+def _runs_plain(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA tensor
+    (the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"lstm_scan runs on cuda or cpu, got {t.device}")
+
+
+def _check_card(what: str, ref: torch.Tensor, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, xw on {ref.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: the CUDA kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def _library(stem: str) -> ctypes.CDLL:
+    lib = _libs.get(stem)
+    if lib is None:
+        lib = _build.load(stem)
+        if stem == "lstm_fwd":
+            fn = lib.tpuflow_lstm_fwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        else:
+            fn = lib.tpuflow_lstm_bwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            lib.tpuflow_lstm_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.tpuflow_lstm_bwd_blocks.restype = ctypes.c_int
+            lib.tpuflow_lstm_bwd_max_hidden.argtypes = []
+            lib.tpuflow_lstm_bwd_max_hidden.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
+        _libs[stem] = lib
+    return lib
+
+
+def _bwd_blocks(B: int, H: int) -> int:
+    """Blocks (partials) of the backward kernel for batch B; raises when the
+    kernel does not take hidden size H."""
+    lib = _library("lstm_bwd")
+    blocks = lib.tpuflow_lstm_bwd_blocks(B, H)
+    if blocks <= 0:
+        raise ValueError(
+            f"lstm_bwd takes a hidden size that is a multiple of 4 up to "
+            f"{lib.tpuflow_lstm_bwd_max_hidden()} (W_h, the dW_h partial and "
+            f"the dz and h tiles must fit in one block's shared memory); "
+            f"got H={H}"
+        )
+    return blocks
+
+
+def _fwd_kernel(xw, wh, b, hs, cs) -> None:
+    """Launch ``csrc/lstm_fwd.cu`` on the current stream into ``hs`` (and
+    ``cs`` when it is not None)."""
+    T, B, H = hs.shape
+    lib = _library("lstm_fwd")
+    with torch.cuda.device(xw.device):
+        code = lib.tpuflow_lstm_fwd_f32(
+            xw.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
+            None if cs is None else cs.data_ptr(),
+            T, B, H, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(
+        lib, code,
+        f"lstm_fwd launch (T={T}, B={B}, H={H}; H must be a multiple of 4 "
+        "and W_h plus the h tile must fit in shared memory)",
+    )
+
+
+def _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts) -> None:
+    """Launch ``csrc/lstm_bwd.cu`` on the current stream into ``dxw`` and the
+    per-block partials."""
+    T, B, H = hs.shape
+    lib = _library("lstm_bwd")
+    with torch.cuda.device(xw.device):
+        code = lib.tpuflow_lstm_bwd_f32(
+            xw.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(),
+            dwh_parts.data_ptr(), db_parts.data_ptr(),
+            T, B, H, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, code, f"lstm_bwd launch (T={T}, B={B}, H={H})")
 
 
 def lstm_scan_reference(
@@ -74,15 +176,96 @@ def lstm_scan_reference(
     return hs, cs
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load(_STEM)
-        fn = lib.tpuflow_lstm_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def lstm_scan_backward_reference(
+    xw: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    hs: torch.Tensor,
+    cs: torch.Tensor,
+    dhs: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward: ``(dxw, dwh, db)`` for the
+    upstream gradient ``dhs [T, B, H]``, by an explicit reverse-time loop
+    that states ``_bwd_kernel``'s math line for line (gates recomputed from
+    ``(xw_t, h_{t-1})``, ``dh`` and ``dc`` carried in f32, zero ``h_{t-1}``
+    and ``c_{t-1}`` at t = 0)."""
+    T, B, H = _check_shapes(xw, wh, b, cs)
+    f32 = torch.float32
+    wh32, b32 = wh.to(f32), b.to(f32)
+    dh_carry = torch.zeros((B, H), dtype=f32, device=xw.device)
+    dc_carry = torch.zeros((B, H), dtype=f32, device=xw.device)
+    zeros = torch.zeros((B, H), dtype=f32, device=xw.device)
+    dxw = torch.empty_like(xw)
+    dwh = torch.zeros((H, 4 * H), dtype=f32, device=xw.device)
+    db = torch.zeros(4 * H, dtype=f32, device=xw.device)
+    for t in reversed(range(T)):
+        h_prev = hs[t - 1].to(f32) if t > 0 else zeros
+        c_prev = cs[t - 1].to(f32) if t > 0 else zeros
+
+        # Recompute this step's pre-activations and gates.
+        z = xw[t].to(f32) + h_prev @ wh32 + b32
+        zi, zf, zg, zo = z.split(H, dim=-1)
+        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+        g = torch.tanh(zg)
+        c = cs[t].to(f32)
+        tanh_c = torch.tanh(c)
+
+        dh = dhs[t].to(f32) + dh_carry
+        do = dh * tanh_c
+        dc = dc_carry + dh * o * (1.0 - tanh_c * tanh_c)
+        di, df, dg = dc * g, dc * c_prev, dc * i
+        dz = torch.cat(
+            [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+             do * o * (1.0 - o)],
+            dim=-1,
+        )  # [B, 4H]
+
+        dxw[t] = dz.to(xw.dtype)
+        dwh += h_prev.T @ dz
+        db += dz.sum(dim=0)
+        dh_carry = dz @ wh32.T
+        dc_carry = dc * f
+    return dxw, dwh.to(wh.dtype), db.to(b.dtype)
+
+
+def _forward(xw, wh, b, cs_out):
+    """``(hs, cs)``: the kernel on a CUDA tensor (``cs`` is ``cs_out``, which
+    it fills when given), the plain version on a CPU tensor."""
+    T, B, H = xw.shape[0], xw.shape[1], wh.shape[0]
+    if _runs_plain(xw):
+        hs, cs = lstm_scan_reference(xw, wh, b)
+        if cs_out is not None:
+            cs_out.copy_(cs)
+        return hs, cs
+    _check_card("lstm_scan", xw, xw=xw, wh=wh, b=b, cs_out=cs_out)
+    hs = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    if T and B:
+        _fwd_kernel(xw, wh, b, hs, cs_out)
+        _count(lstm_scan)
+    return hs, cs_out
+
+
+class _LSTMScan(torch.autograd.Function):
+    """``lstm_scan`` with gradients: the forward keeps the cell states and
+    saves ``(xw, wh, b, hs, cs)`` as ``_lstm_scan_fwd`` does; the backward is
+    ``lstm_scan_backward``."""
+
+    @staticmethod
+    def forward(ctx, xw, wh, b, cs_out):
+        T, B, H = xw.shape[0], xw.shape[1], wh.shape[0]
+        if not _runs_plain(xw):
+            _bwd_blocks(max(B, 1), H)  # refuse before the forward runs
+            if cs_out is None:
+                cs_out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+        hs, cs = _forward(xw, wh, b, cs_out)
+        ctx.save_for_backward(xw, wh, b, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xw, wh, b, hs, cs = ctx.saved_tensors
+        dxw, dwh, db = lstm_scan_backward(xw, wh, b, hs, cs, dhs.contiguous())
+        return dxw, dwh, db, None
 
 
 def lstm_scan(
@@ -98,44 +281,54 @@ def lstm_scan(
 
     CUDA tensors go through ``csrc/lstm_fwd.cu`` (f32, contiguous, one
     device) and count one launch in ``lstm_scan.launches``; CPU tensors go
-    through ``lstm_scan_reference``.
+    through ``lstm_scan_reference``. With gradients enabled and an input
+    that requires them, the result is differentiable through
+    ``lstm_scan_backward``.
     """
-    T, B, H = _check_shapes(xw, wh, b, cs_out)
-    if xw.device.type == "cpu":
-        hs, cs = lstm_scan_reference(xw, wh, b)
-        if cs_out is not None:
-            cs_out.copy_(cs)
-        return hs
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_scan runs on cuda or cpu, got {xw.device}")
-    args = [xw, wh, b] + ([] if cs_out is None else [cs_out])
-    for name, t in zip(("xw", "wh", "b", "cs_out"), args):
-        if t.device != xw.device:
-            raise ValueError(f"lstm_scan: {name} is on {t.device}, xw on {xw.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"lstm_scan: the CUDA kernel takes float32, {name} is {t.dtype}"
+    _check_shapes(xw, wh, b, cs_out)
+    if torch.is_grad_enabled() and (
+        xw.requires_grad or wh.requires_grad or b.requires_grad
+    ):
+        return _LSTMScan.apply(xw, wh, b, cs_out)
+    return _forward(xw, wh, b, cs_out)[0]
+
+
+def lstm_scan_backward(
+    xw: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    hs: torch.Tensor,
+    cs: torch.Tensor,
+    dhs: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of ``lstm_scan``: ``(dxw [T, B, 4H], dwh [H, 4H], db [4H])``
+    from the forward's residuals ``hs``, ``cs`` and the upstream ``dhs``.
+
+    CUDA tensors go through ``csrc/lstm_bwd.cu`` (f32, contiguous, one
+    device) and count one launch in ``lstm_scan_backward.launches``; the
+    per-block ``dW_h``/``db`` partials are summed here over the block axis.
+    CPU tensors go through ``lstm_scan_backward_reference``.
+    """
+    T, B, H = _check_shapes(xw, wh, b, cs)
+    for name, t in (("hs", hs), ("dhs", dhs)):
+        if tuple(t.shape) != (T, B, H):
+            raise ValueError(
+                f"lstm_scan_backward: {name} must be [{T}, {B}, {H}], got "
+                f"{tuple(t.shape)}"
             )
-        if not t.is_contiguous():
-            raise ValueError(f"lstm_scan: {name} must be contiguous")
-    hs = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
-    if T == 0 or B == 0:
-        return hs
-    lib = _library()
-    with torch.cuda.device(xw.device):
-        code = lib.tpuflow_lstm_fwd_f32(
-            xw.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
-            None if cs_out is None else cs_out.data_ptr(),
-            T, B, H, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(
-        lib, code,
-        f"lstm_fwd launch (T={T}, B={B}, H={H}; H must be a multiple of 4 "
-        "and W_h plus the h tile must fit in shared memory)",
-    )
-    with _count_lock:
-        lstm_scan.launches += 1
-    return hs
+    if _runs_plain(xw):
+        return lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    _check_card("lstm_scan_backward", xw, xw=xw, wh=wh, b=b, hs=hs, cs=cs, dhs=dhs)
+    dxw = torch.empty_like(xw)
+    if not (T and B):
+        return dxw.zero_(), torch.zeros_like(wh), torch.zeros_like(b)
+    blocks = _bwd_blocks(B, H)
+    dwh_parts = torch.empty((blocks, H, 4 * H), dtype=torch.float32, device=xw.device)
+    db_parts = torch.empty((blocks, 4 * H), dtype=torch.float32, device=xw.device)
+    _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts)
+    _count(lstm_scan_backward)
+    return dxw, dwh_parts.sum(dim=0), db_parts.sum(dim=0)
 
 
 lstm_scan.launches = 0
+lstm_scan_backward.launches = 0
