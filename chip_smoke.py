@@ -13,27 +13,30 @@ Phases, in order; any failure exits non-zero before the result line:
    compiled by ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes the training and serving paths give it (``lstm_fwd``,
-   ``lstm_bwd``, ``mae_clip``), with CUDA-event timings of the kernel, the
-   plain version and, where one exists, a library call as a yardstick.
+   ``lstm_bwd``, ``mae_clip``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``;
+   the LSTM kernels also at hidden sizes 128 and 256), with CUDA-event
+   timings of the kernel, the plain version and, where one exists, a
+   library call as a yardstick.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
-   device: LSTM-64 for 3 epochs, then the stacked LSTM for 2. Each run's
-   kernel launches must equal what the dataset sizes give; losses must be
-   finite and LSTM-64 must beat the Gilbert baseline. Then, after the
-   counted runs: one batch's gradients through the kernels against the
-   plain path, steady train samples/s, and a ``torch.profiler`` window of
-   steady steps.
-5. serve   — the two trained artifacts and an LSTM-64 and a stacked-LSTM
-   artifact with random weights from a seed (written by the port's
-   checkpoint writer) served over ``POST /predict`` by the port's HTTP
-   server on the default device; each answer is checked for status, count,
-   finite values, agreement with the same predictor's plain path, and the
-   kernel launches it caused.
+   device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
+   regressor for 3, then the attention regressor at a 256-step window for
+   1. Each run's kernel launches must equal what the dataset sizes give;
+   losses must be finite and LSTM-64 and the 3-epoch attention run must
+   beat the Gilbert baseline. Then, after the counted runs: one batch's
+   gradients through the kernels against the plain path, steady train
+   samples/s, and a ``torch.profiler`` window of steady steps.
+5. serve   — the trained artifacts (LSTM-64, stacked LSTM, attention) and
+   an LSTM-64, a stacked-LSTM and an attention artifact with random weights
+   from a seed (written by the port's checkpoint writer) served over
+   ``POST /predict`` by the port's HTTP server on the default device; each
+   answer is checked for status, count, finite values, agreement with the
+   same predictor's plain path, and the kernel launches it caused.
 6. breakdown — after the counted run, where one warm 3912-window request's
    time goes: host-clock stages and one ``torch.profiler`` window.
 
 The line before last is ``nvidia-smi``'s name and power limit, the one
-before it the kernels' JSON record (launches from the train phase), and the
-last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+before it the kernels' JSON record (launches from the counted train runs),
+and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``tpuflow``.
 """
 
@@ -77,6 +80,22 @@ MAE_RTOL = 1e-5
 # Parameter gradients of one training batch, kernels vs plain path,
 # normwise 1e-4: they sum B*T products through both recurrences.
 GRAD_TOL = 1e-4
+# flash_fwd vs plain: the same online softmax over the same 64-row tiles,
+# with each row's dot products summed in another order; o and lse are of
+# order 1, so 1e-5 absolute.
+FLASH_ATOL = 1e-5
+# flash_dq and flash_dkv vs plain, normwise: sums over up to T pairs of
+# products of two D-term dot products, in another order.
+FLASH_GRAD_TOL = 1e-4
+# (BH, T, D): the train step (batch 20 x 4 heads), a long window, a serving
+# chunk (4096 windows x 4 heads), benchmarks/bench_attention.py's long T,
+# and a ragged last tile at another head dim.
+FLASH_SHAPES = ((80, 24, 16), (80, 256, 16), (16384, 24, 16), (256, 1024, 16),
+                (64, 1000, 64))
+LAYERS = {"lstm": 1, "stacked_lstm": 2, "attention": 2}
+# The kernel each family's forward runs (what serving launches).
+FORWARD_KERNEL = {"lstm": "lstm_fwd", "stacked_lstm": "lstm_fwd",
+                  "attention": "flash_fwd"}
 # Served predictions vs the plain path, in normalised target units (they are
 # compared after denormalisation, so scaled by target_std).
 PRED_ATOL_NORM = 1e-5
@@ -133,6 +152,31 @@ def lstm_bwd_bound(Tn: int, B: int, Hn: int) -> tuple[float, str]:
     return _bound(nbytes, ops)
 
 
+def causal_pairs(Tn: int) -> int:
+    return Tn * (Tn + 1) // 2
+
+
+def flash_fwd_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_fwd: q, k, v read once, o and lse written once;
+    4*D operations (the q.k and p*v products) per causal pair."""
+    nbytes = 4 * (4 * BH * Tn * D + BH * Tn)
+    return _bound(nbytes, 4 * BH * D * causal_pairs(Tn))
+
+
+def flash_dq_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_dq: q, k, v, do, lse and delta read once, dq
+    written once; 6*D operations (q.k, do.v, ds*k) per causal pair."""
+    nbytes = 4 * (5 * BH * Tn * D + 2 * BH * Tn)
+    return _bound(nbytes, 6 * BH * D * causal_pairs(Tn))
+
+
+def flash_dkv_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_dkv: the same inputs read once, dk and dv
+    written once; 8*D operations (q.k, do.v, p*do, ds*q) per causal pair."""
+    nbytes = 4 * (6 * BH * Tn * D + 2 * BH * Tn)
+    return _bound(nbytes, 8 * BH * D * causal_pairs(Tn))
+
+
 def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
     """Least time for mae_clip: both operands read once, R sums written;
     4 operations per element (subtract, abs, clip, add)."""
@@ -184,11 +228,14 @@ def phase_build() -> None:
 
 def phase_kernels(torch) -> dict:
     """Every kernel against its plain version; {name: record}."""
-    return {
+    records = {
         "lstm_fwd": kernel_lstm_fwd(torch),
         "lstm_bwd": kernel_lstm_bwd(torch),
         "mae_clip": kernel_mae_clip(torch),
     }
+    kernel_lstm_wide(torch)
+    records.update(kernel_flash(torch))
+    return records
 
 
 def kernel_lstm_fwd(torch) -> dict:
@@ -310,6 +357,154 @@ def kernel_lstm_bwd(torch) -> dict:
     return record
 
 
+def kernel_lstm_wide(torch) -> None:
+    """lstm_fwd and lstm_bwd at hidden sizes past the shared-memory layouts
+    (H = 128 and 256, B = 20 and 4096): W_h read through L2, and the
+    backward's partial kept in the global buffer. Same tolerances as at
+    H = 64; times are logged, the JSON records stay those of H = 64."""
+    from tpuflow_torch.kernels.lstm import (
+        lstm_scan,
+        lstm_scan_backward,
+        lstm_scan_backward_reference,
+        lstm_scan_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for Hn in (128, 256):
+        for B in (TRAIN_BATCH, 4096):
+            xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
+            wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
+            b = torch.randn(4 * Hn, generator=gen, device=dev) * 0.1
+            dhs = torch.randn((T, B, Hn), generator=gen, device=dev)
+            cs = torch.empty((T, B, Hn), device=dev)
+            hs = lstm_scan(xw, wh, b, cs_out=cs)
+            got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+            torch.cuda.synchronize()
+            ref_hs, ref_cs = lstm_scan_reference(xw, wh, b)
+            fwd_err = max((hs - ref_hs).abs().max().item(), (cs - ref_cs).abs().max().item())
+            if not (torch.allclose(hs, ref_hs, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                    and torch.allclose(cs, ref_cs, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)):
+                raise AssertionError(
+                    f"lstm_fwd disagrees with its plain version at H={Hn}, B={B}: "
+                    f"max abs err {fwd_err:.3e}")
+            want = lstm_scan_backward_reference(xw, wh, b, ref_hs, ref_cs, dhs)
+            errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
+            bad = {k: e for k, e in errs.items() if not e <= BWD_TOL[k]}
+            if bad:
+                raise AssertionError(
+                    f"lstm_bwd disagrees with its plain version at H={Hn}, B={B}: {bad}")
+            fwd_ms = cuda_ms(torch, lambda: lstm_scan(xw, wh, b), runs=10)
+            fwd_plain = cuda_ms(torch, lambda: lstm_scan_reference(xw, wh, b), runs=5)
+            bwd_ms = cuda_ms(
+                torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs), runs=10)
+            bwd_plain = cuda_ms(
+                torch, lambda: lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs), runs=5)
+            fb, fby = lstm_bound(T, B, Hn)
+            bb, bby = lstm_bwd_bound(T, B, Hn)
+            log(f"[kernel] lstm wide H={Hn} B={B:5d}: lstm_fwd max_abs_err={fwd_err:.3e} "
+                f"kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}); "
+                "lstm_bwd normwise_err="
+                + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
+                + f" kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby})")
+
+
+def kernel_flash(torch) -> dict:
+    """flash_fwd, flash_dq and flash_dkv against their plain versions at
+    FLASH_SHAPES (the backward pair on the kernel's own lse and delta, so
+    that each is held alone), with SDPA (is_causal, f32) timed as the
+    yardstick; returns the records of the serving chunk for flash_fwd and
+    of the train step for flash_dq and flash_dkv."""
+    from tpuflow_torch.kernels.attention import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_forward,
+        flash_attention_reference,
+        flash_dkv_reference,
+        flash_dq_reference,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    log(f"[kernel] flash_fwd/flash_dq/flash_dkv vs their plain versions: f32; "
+        f"flash_fwd within atol={FLASH_ATOL} on o and lse (same tiles, dot "
+        f"products summed in another order), flash_dq and flash_dkv normwise "
+        f"within {FLASH_GRAD_TOL} (sums over up to T pairs in another order); "
+        "library: scaled_dot_product_attention(is_causal=True), a yardstick "
+        "the port never calls")
+    records, worst = {}, dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0.0)
+    for BH, Tn, D in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((BH, Tn, D), generator=gen, device=dev) for _ in range(4))
+        o, lse = flash_attention_forward(q, k, v)
+        delta = (do * o).sum(-1)
+        dq = flash_attention_dq(q, k, v, do, lse, delta)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = flash_attention_reference(q, k, v)
+        ref_dq = flash_dq_reference(q, k, v, do, lse, delta)
+        ref_dk, ref_dv = flash_dkv_reference(q, k, v, do, lse, delta)
+        errs = {
+            "flash_fwd": max((o - ref_o).abs().max().item(), (lse - ref_lse).abs().max().item()),
+            "flash_dq": (dq - ref_dq).abs().max().item(),
+            "flash_dkv": max((dk - ref_dk).abs().max().item(), (dv - ref_dv).abs().max().item()),
+        }
+        norm = {"dq": normwise_err(dq, ref_dq), "dk": normwise_err(dk, ref_dk),
+                "dv": normwise_err(dv, ref_dv)}
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+        if errs["flash_fwd"] > FLASH_ATOL:
+            raise AssertionError(f"flash_fwd disagrees with its plain version at "
+                                 f"{(BH, Tn, D)}: max abs err {errs['flash_fwd']:.3e}")
+        bad = {n: e for n, e in norm.items() if not e <= FLASH_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"flash backward disagrees with its plain version at "
+                                 f"{(BH, Tn, D)}: normwise {bad}")
+        ms = {
+            "flash_fwd": cuda_ms(torch, lambda: flash_attention_forward(q, k, v)),
+            "flash_dq": cuda_ms(torch, lambda: flash_attention_dq(q, k, v, do, lse, delta)),
+            "flash_dkv": cuda_ms(torch, lambda: flash_attention_dkv(q, k, v, do, lse, delta)),
+        }
+        plain_ms = {
+            "flash_fwd": cuda_ms(torch, lambda: flash_attention_reference(q, k, v), runs=10),
+            "flash_dq": cuda_ms(
+                torch, lambda: flash_dq_reference(q, k, v, do, lse, delta), runs=10),
+            "flash_dkv": cuda_ms(
+                torch, lambda: flash_dkv_reference(q, k, v, do, lse, delta), runs=10),
+        }
+        lib_err = (sdpa(q, k, v, is_causal=True) - ref_o).abs().max().item()
+        sdpa_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = sdpa(qg, kg, vg, is_causal=True)
+        sdpa_bwd = cuda_ms(
+            torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+        sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+        library_ms = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
+        bounds = {"flash_fwd": flash_fwd_bound(BH, Tn, D),
+                  "flash_dq": flash_dq_bound(BH, Tn, D),
+                  "flash_dkv": flash_dkv_bound(BH, Tn, D)}
+        log(f"[kernel] flash (BH, T, D)=({BH}, {Tn}, {D}): normwise_err="
+            + ",".join(f"{n}:{e:.3e}" for n, e in norm.items())
+            + f"; SDPA fwd max abs err vs plain {lib_err:.3e}, sdpa_fwd_ms={sdpa_fwd:.4f} "
+            f"sdpa_bwd_ms={sdpa_bwd:.4f} (dq, dk, dv together, on a saved forward) "
+            f"sdpa_fwd_bwd_ms={sdpa_both:.4f}")
+        for name in ms:
+            bound_ms, bound_by = bounds[name]
+            log(f"[kernel]   {name:9s} max_abs_err={errs[name]:.3e} kernel_ms={ms[name]:.4f} "
+                f"plain_ms={plain_ms[name]:.4f} library_ms={library_ms[name]:.4f} "
+                f"bound_ms={bound_ms:.6f} ({bound_by})")
+        keep = ("flash_fwd",) if (BH, Tn, D) == (16384, T, 16) else (
+            ("flash_dq", "flash_dkv") if (BH, Tn, D) == (TRAIN_BATCH * 4, T, 16) else ())
+        for name in keep:
+            records[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
+                             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                             "library_ms": library_ms[name]}
+    for name, record in records.items():
+        record["max_abs_err"] = worst[name]
+    return records
+
+
 def kernel_mae_clip(torch) -> dict:
     """mae_clip against mae_clip_reference at [1, 480] (the train loss at
     batch 20), [20, 24] (eval, one row per example) and [1, 4096*24];
@@ -347,23 +542,29 @@ def kernel_mae_clip(torch) -> dict:
     return record
 
 
-def expected_train_launches(config, layers: int) -> tuple[dict, dict]:
+def expected_train_launches(config) -> tuple[dict, dict]:
     """Each kernel's launches in one ``train(config)`` on synthetic wells,
     from the data sizes: windows per well, the 64/16/20 split, whole train
     batches, padded val batches each epoch, then the test split once at
-    the final eval's batch (256 when it is over 4 train batches)."""
+    the final eval's batch (256 when it is over 4 train batches). Each of
+    the model's layers runs its family's forward kernel once per batch and
+    its backward kernels once per train batch; the family's other kernels
+    and the other family's run no time."""
     n = config.synthetic_wells * (config.synthetic_steps - config.window + 1)
     n_train, n_val = int(round(n * 0.64)), int(round(n * 0.16))
     n_test = n - n_train - n_val
     bs = config.batch_size
     eval_bs = max(bs, 256) if n_test > 4 * bs else bs
     train_b, val_b, test_b = n_train // bs, -(-n_val // bs), -(-n_test // eval_bs)
-    epochs = config.max_epochs
+    epochs, layers = config.max_epochs, LAYERS[config.model]
+    backward = ("flash_dq", "flash_dkv") if config.model == "attention" else ("lstm_bwd",)
     want = {
-        "lstm_fwd": layers * (train_b + val_b) * epochs + layers * test_b,
-        "lstm_bwd": layers * train_b * epochs,
+        "lstm_fwd": 0, "lstm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        FORWARD_KERNEL[config.model]: layers * (train_b + val_b) * epochs + layers * test_b,
         "mae_clip": (train_b + val_b) * epochs + test_b,
     }
+    for name in backward:
+        want[name] = layers * train_b * epochs
     sizes = {"windows": n, "train": n_train, "val": n_val, "test": n_test,
              "train_batches": train_b, "val_batches": val_b,
              "test_batches": test_b, "test_batch": eval_bs}
@@ -371,9 +572,11 @@ def expected_train_launches(config, layers: int) -> tuple[dict, dict]:
 
 
 def phase_train(torch, root: str, smi: str) -> dict:
-    """Train LSTM-64 (3 epochs) and the stacked LSTM (2 epochs) through
-    ``train(TrainJobConfig(...))`` at its defaults into ``root``; returns the
-    kernels' launches summed over both counted runs."""
+    """Train LSTM-64 (3 epochs), the stacked LSTM (2 epochs) and the
+    attention regressor (3 epochs) through ``train(TrainJobConfig(...))`` at
+    its defaults into ``root``, then the attention regressor at a 256-step
+    window (1 epoch, into a directory of its own); returns the kernels'
+    launches summed over the counted runs."""
     from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.api.train_api import train
     from tpuflow_torch.data.pipeline import prepare_windowed
@@ -382,10 +585,14 @@ def phase_train(torch, root: str, smi: str) -> dict:
 
     totals = dict.fromkeys(KERNELS, 0)
     models = []
-    for model_name, layers, epochs in (("lstm", 1, 3), ("stacked_lstm", 2, 2)):
-        config = TrainJobConfig(model=model_name, max_epochs=epochs,
-                                storage_path=root, verbose=False)
-        want, sizes = expected_train_launches(config, layers)
+    runs = (("lstm", 3, T), ("stacked_lstm", 2, T), ("attention", 3, T), ("attention", 1, 256))
+    for model_name, epochs, window in runs:
+        label = model_name if window == T else f"{model_name}@{window}"
+        config = TrainJobConfig(
+            model=model_name, max_epochs=epochs, window=window, verbose=False,
+            storage_path=root if window == T else os.path.join(root, f"window{window}"),
+        )
+        want, sizes = expected_train_launches(config)
         for k in KERNELS.values():
             k.launches = 0
         t0 = time.perf_counter()
@@ -394,29 +601,30 @@ def phase_train(torch, root: str, smi: str) -> dict:
         seconds = time.perf_counter() - t0
         got = {name: k.launches for name, k in KERNELS.items()}
         history = report.result.history
-        log(f"[train] {model_name:12s} {epochs} epochs in {seconds:.2f} s on "
+        log(f"[train] {label:14s} {epochs} epochs in {seconds:.2f} s on "
             f"{report.device}; data {sizes}")
         for h in history:
-            log(f"[train] {model_name:12s} epoch {h['epoch']}: loss={h['loss']:.6f} "
+            log(f"[train] {label:14s} epoch {h['epoch']}: loss={h['loss']:.6f} "
                 f"val_loss={h['val_loss']:.6f} time_s={h['time']:.3f}")
-        log(f"[train] {model_name:12s} test_loss={report.test_loss:.6f} "
+        log(f"[train] {label:14s} test_loss={report.test_loss:.6f} "
             f"test_mae={report.test_mae:.2f} gilbert_mae={report.gilbert_mae:.2f} "
             f"stb/day; fit samples/s={report.samples_per_sec:.1f} (host clock over "
             f"the fit, eval included; card: {smi}); program {report.epoch_program}")
-        log(f"[train] {model_name:12s} launches {got}, expected {want}")
+        log(f"[train] {label:14s} launches {got}, expected {want}")
         if got != want:
-            raise AssertionError(f"{model_name}: kernel launches {got} != {want}")
+            raise AssertionError(f"{label}: kernel launches {got} != {want}")
         if len(history) != epochs or not all(
             np.isfinite([h["loss"], h["val_loss"]]).all() for h in history
         ) or not np.isfinite(report.test_loss):
-            raise AssertionError(f"{model_name}: non-finite or missing losses {history}")
-        if model_name == "lstm" and not report.test_mae < report.gilbert_mae:
+            raise AssertionError(f"{label}: non-finite or missing losses {history}")
+        if label in ("lstm", "attention") and not report.test_mae < report.gilbert_mae:
             raise AssertionError(
-                f"LSTM-64 test MAE {report.test_mae:.2f} does not beat the Gilbert "
+                f"{label} test MAE {report.test_mae:.2f} does not beat the Gilbert "
                 f"baseline {report.gilbert_mae:.2f}")
         for k in totals:
             totals[k] += got[k]
-        models.append((model_name, report.result.model))
+        if window == T:
+            models.append((model_name, report.result.model))
 
     # After the counted runs: gradients, steady steps, profile.
     splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
@@ -491,7 +699,10 @@ def steady_steps(torch, model_name, model, x, y, smi) -> None:
     by_kernel = device_ms_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
     idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured"
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    # The eight largest, and the port's own kernels wherever they rank.
+    ours = ("lstm_fwd_f32", "lstm_bwd_f32", "flash_", "clipped_abs_partial", "row_sum_kernel")
+    top = ranked[:8] + [kv for kv in ranked[8:] if any(m in kv[0] for m in ours)]
     log(f"[train] {model_name:12s} profiled 20 steps: wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={idle} kernels={len(by_kernel)}; "
         "by kernel (ms over 20 steps): "
@@ -519,10 +730,11 @@ def _post(url: str, spec: dict) -> tuple[int, dict]:
         return e.code, json.loads(e.read() or b"{}")
 
 
-def phase_serve(torch, root: str, smi: str) -> int:
+def phase_serve(torch, root: str, smi: str) -> dict:
     """Serve the trained artifacts in ``root`` (no well column in their
-    sidecars: each request is one series) and two with random weights (well
-    column "well") over HTTP; returns lstm_fwd's launches."""
+    sidecars: each request is one series) and three with random weights
+    (well column "well") over HTTP; returns each kernel's launches over the
+    serving run."""
     from tpuflow_torch.api.predict_api import save_artifact_meta
     from tpuflow_torch.convert import model_leaves
     from tpuflow_torch.data.synthetic import write_csv
@@ -542,9 +754,10 @@ def phase_serve(torch, root: str, smi: str) -> int:
         "schema_columns": [{"name": n, "kind": k} for n, k in SCHEMA],
         "target": "flow",
     }
-    random_artifacts = [("lstm64", "lstm", 1, True), ("stacked", "stacked_lstm", 2, True)]
-    for seed, (name, model_name, _, _) in enumerate(random_artifacts):
-        model = build_model(model_name, len(FEATURES))
+    random_artifacts = [("lstm64", "lstm", True), ("stacked", "stacked_lstm", True),
+                        ("attn", "attention", True)]
+    for seed, (name, model_name, _) in enumerate(random_artifacts):
+        model = build_model(model_name, len(FEATURES), window=T)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         StoreCheckpointer(root, name).maybe_save(1, model_leaves(model), val_loss=0.0)
         save_artifact_meta(root, name, model_name, {}, "windowed", pre,
@@ -559,7 +772,8 @@ def phase_serve(torch, root: str, smi: str) -> int:
         ("ragged tail, 11 wells", "columns", _columns(11, 512, 3, True), 11 * 489),
         ("csv path, 2 wells", "data", csv_cols, 2 * 277),
     ]
-    trained = [("lstm", "lstm", 1, False), ("stacked_lstm", "stacked_lstm", 2, False)]
+    trained = [("lstm", "lstm", False), ("stacked_lstm", "stacked_lstm", False),
+               ("attention", "attention", False)]
     artifacts = trained + random_artifacts
 
     server = make_server("127.0.0.1", 0)  # device left at its default: cuda
@@ -571,8 +785,9 @@ def phase_serve(torch, root: str, smi: str) -> int:
         log(f"[serve] port server on {url} ({server.predictor.device}); card: {smi}")
         for k in KERNELS.values():
             k.launches = 0
-        lstm_scan = KERNELS["lstm_fwd"]
-        for name, model_name, layers, grouped in artifacts:
+        for name, model_name, grouped in artifacts:
+            forward_kernel = KERNELS[FORWARD_KERNEL[model_name]]
+            layers = LAYERS[model_name]
             for label, kind, cols, windows in requests:
                 if not grouped:
                     if kind == "data":  # the CSV's well column is not in its schema
@@ -583,11 +798,11 @@ def phase_serve(torch, root: str, smi: str) -> int:
                     spec["data"] = csv_path
                 else:
                     spec["columns"] = {c: v.tolist() for c, v in cols.items()}
-                before = lstm_scan.launches
+                before = forward_kernel.launches
                 t0 = time.perf_counter()
                 status, body = _post(url, spec)
                 seconds = time.perf_counter() - t0
-                launched = lstm_scan.launches - before
+                launched = forward_kernel.launches - before
                 chunks = -(-windows // BATCH)
                 rows = len(cols["pressure"])
                 log(f"[serve] {name:12s} {label:22s} status={status} "
@@ -607,16 +822,16 @@ def phase_serve(torch, root: str, smi: str) -> int:
                     raise AssertionError(f"{model_name} {label}: non-finite predictions")
                 if launched != layers * chunks:
                     raise AssertionError(
-                        f"{model_name} {label}: {launched} kernel launches, "
-                        f"expected layers x chunks = {layers} x {chunks}")
+                        f"{model_name} {label}: {launched} {FORWARD_KERNEL[model_name]} "
+                        f"launches, expected layers x chunks = {layers} x {chunks}")
                 answers.append((name, model_name, label, kind, cols, y))
-        launches = lstm_scan.launches
+        launches = {name: k.launches for name, k in KERNELS.items()}
         metrics = server.predictor.metrics()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    log(f"[serve] lstm_fwd launches over the serving run: {launches}; "
+    log(f"[serve] kernel launches over the serving run: {launches}; "
         f"service metrics: requests={metrics['requests']} errors={metrics['errors']} "
         f"loads={metrics['loads']} latency_ms={metrics['latency_ms']}")
     if metrics["errors"] or metrics["requests"] != len(answers):
@@ -646,7 +861,7 @@ def phase_breakdown(torch, service, root, cols, artifacts, smi) -> None:
     device time by kernel and the device's idle share of that window."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name, model_name, *_ in artifacts:
+    for name, model_name, _ in artifacts:
         pred = service.get_predictor(root, name)
         stages = {"prepare_ms": [], "forward_ms": [], "encode_ms": []}
         for _ in range(5):
@@ -697,18 +912,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tpuflow_torch_smoke_") as root:
         launches = phase_train(torch, root, smi)
         serve_launches = phase_serve(torch, root, smi)
-    if serve_launches == 0:
-        raise AssertionError("lstm_fwd was not launched on the serving path")
+    missed = [k for k in ("lstm_fwd", "flash_fwd") if serve_launches[k] == 0]
+    if missed:
+        raise AssertionError(f"not launched on the serving path: {missed}")
     missed = [k for k, n in launches.items() if n == 0]
     if missed:
         raise AssertionError(f"not launched on the training path: {missed}")
     kernels = [
         {"name": name, "route": "cuda",
-         "source": f"tpuflow_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+         "source": f"tpuflow_torch/kernels/csrc/{source}.cu", "replaces": replaces,
          "launches": launches[name], **records[name]}
-        for name, replaces in (("lstm_fwd", "tpuflow/kernels/lstm.py:68"),
-                               ("lstm_bwd", "tpuflow/kernels/lstm.py:97"),
-                               ("mae_clip", "tpuflow/kernels/losses.py:33"))
+        for name, source, replaces in (
+            ("lstm_fwd", "lstm_fwd", "tpuflow/kernels/lstm.py:68"),
+            ("lstm_bwd", "lstm_bwd", "tpuflow/kernels/lstm.py:97"),
+            ("mae_clip", "mae_clip", "tpuflow/kernels/losses.py:33"),
+            ("flash_fwd", "flash_fwd", "tpuflow/kernels/attention.py:208"),
+            ("flash_dq", "flash_bwd", "tpuflow/kernels/attention.py:255"),
+            ("flash_dkv", "flash_bwd", "tpuflow/kernels/attention.py:284"),
+        )
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -204,9 +204,9 @@ def test_cuda_autograd_runs_both_kernels(cuda_device):
     (ref_hs * ref_hs).sum().backward()
     for got, want in zip((xw, wh, b), ref):
         assert _normwise_err(got.grad, want.grad) <= 1e-4
-    with pytest.raises(ValueError, match="multiple of 4 up to 76"):
+    with pytest.raises(ValueError, match="multiple of 4 up to 256"):
         lstm_scan(*(torch.from_numpy(a).to(cuda_device).requires_grad_()
-                    for a in _case(2, 3, 80)))
+                    for a in _case(2, 3, 260)))
 
 
 @pytest.mark.cuda
@@ -223,3 +223,26 @@ def test_cuda_kernel_matches_plain_version(cuda_device, B):
     torch.testing.assert_close(cs, ref_cs, atol=ATOL, rtol=ATOL)
     with pytest.raises(TypeError, match="float32"):
         lstm_scan(xw.double(), wh.double(), b.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(20, 128), (37, 256), (5, 100)])
+def test_cuda_kernels_take_hidden_sizes_beyond_shared_memory(cuda_device, B, H):
+    """Above H = 116 (forward) and H = 76 (backward) the kernels read W_h
+    through L2 and the backward keeps its dW_h/db partial in the global
+    buffer; tolerances as in the tests above (forward 1e-5, backward
+    normwise dxw 1e-5, dW_h and db 1e-4)."""
+    xw, wh, b = (torch.from_numpy(a).to(cuda_device) for a in _case(24, B, H, seed=H))
+    wh = wh / H ** 0.5
+    cs = torch.empty((24, B, H), device=cuda_device)
+    hs = lstm_scan(xw, wh, b, cs_out=cs)
+    dhs = torch.randn((24, B, H), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(H))
+    got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+    torch.cuda.synchronize()
+    ref_hs, ref_cs = lstm_scan_reference(xw, wh, b)
+    torch.testing.assert_close(hs, ref_hs, atol=ATOL, rtol=ATOL)
+    torch.testing.assert_close(cs, ref_cs, atol=ATOL, rtol=ATOL)
+    want = lstm_scan_backward_reference(xw, wh, b, ref_hs, ref_cs, dhs)
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert _normwise_err(g, w) <= tol

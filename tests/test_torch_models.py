@@ -110,4 +110,4 @@ def test_unknown_backend_readout_and_family_raise():
     with pytest.raises(ValueError, match="readout"):
         build_model("lstm", 5, readout="mean")
     with pytest.raises(ValueError, match="not ported yet.*ROADMAP.md"):
-        build_model("attention", 5)
+        build_model("cnn1d", 5)

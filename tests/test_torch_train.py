@@ -157,7 +157,7 @@ def test_cli_train_verb(tmp_path, capsys):
     assert os.path.isfile(os.path.join(root, "models", "lstm", "BEST"))
     assert cli_main(["--tp", "2", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
-    assert cli_main(["--model", "attention", "--device", "cpu"]) == 2
+    assert cli_main(["--model", "cnn1d", "--device", "cpu"]) == 2
     assert cli_main(["--model-kwargs", "[1]", "--device", "cpu"]) == 2
 
 
@@ -175,7 +175,7 @@ def test_config_fields_and_defaults_match_jax():
      ("resume", True), ("save_every", 1), ("faults", ["train.epoch_end,at=1"]),
      ("fault_epoch", 1), ("progress_path", "p.json"), ("trace_dir", "t"),
      ("metrics_path", "m.jsonl"), ("precision", "bf16"), ("health", "abort"),
-     ("accumulate_steps", 2), ("model", "attention")],
+     ("accumulate_steps", 2), ("model", "cnn1d")],
 )
 def test_fields_not_ported_yet_raise(field, value):
     config = dataclasses.replace(TrainJobConfig(), **{field: value})

@@ -78,7 +78,7 @@ def check_artifact_meta(meta) -> list[str]:
     if out:
         return out
     try:
-        build_model(model, shape[-1], **kwargs)
+        build_model(model, shape[-1], window=shape[-2], **kwargs)
     except (TypeError, ValueError) as e:
         out.append(f"artifact.init: sidecar model {model!r} with kwargs "
                    f"{kwargs!r} does not build: {type(e).__name__}: {e}")

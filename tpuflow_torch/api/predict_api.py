@@ -96,7 +96,8 @@ class Predictor:
             meta = json.load(f)
         ensure_artifact_meta(meta, where=path)
         model = build_model(
-            meta["model"], meta["sample_shape"][-1], **meta["model_kwargs"]
+            meta["model"], meta["sample_shape"][-1],
+            window=meta["sample_shape"][-2], **meta["model_kwargs"],
         )
         load_leaves(model, StoreCheckpointer(storage_path, name).restore_best())
         model.to(dev).eval()

@@ -1,7 +1,7 @@
-"""The train(config) entry point for the LSTM family, on one card.
+"""The train(config) entry point for the LSTM and attention families, on one card.
 
-Counterpart of ``tpuflow/api/train_api.py`` for ``lstm`` and
-``stacked_lstm``: ingest (CSV or synthetic wells) under a dynamic schema,
+Counterpart of ``tpuflow/api/train_api.py`` for ``lstm``, ``stacked_lstm``
+and ``attention``: ingest (CSV or synthetic wells) under a dynamic schema,
 window and split 64/16/20, normalise with train statistics, build the model,
 train with early stopping and save-best, evaluate on the held-out test split,
 write the serving sidecar, and report elapsed time, test loss, throughput and
@@ -74,7 +74,7 @@ def _refuse_not_ported(config: TrainJobConfig) -> None:
     if config.model not in MODELS:
         raise NotImplementedError(
             f"model {config.model!r} is not ported yet to tpuflow_torch "
-            f"(ported: {sorted(MODELS)}; ROADMAP.md Queue 1 items 3 and 10)"
+            f"(ported: {sorted(MODELS)}; ROADMAP.md Queue 1 item 10)"
         )
 
 
@@ -107,6 +107,19 @@ class TrainReport:
         return "\n".join(lines)
 
 
+def _sidecar_kwargs(model_kwargs: dict) -> dict:
+    """model_kwargs as the serving sidecar records them
+    (``tpuflow/api/train_api.py::_sidecar_kwargs``): a ring backend serves as
+    ``"full"`` (checkpoints are backend-interchangeable), and the mesh and
+    the compute dtype are dropped (artifacts hold f32 params)."""
+    kwargs = dict(model_kwargs)
+    if kwargs.get("backend") == "ring":
+        kwargs["backend"] = "full"
+    kwargs.pop("mesh", None)
+    kwargs.pop("dtype", None)
+    return kwargs
+
+
 def _gilbert_mae(pressure, choke, glr, y_raw) -> float:
     """MAE of the closed-form Gilbert baseline against RAW-unit targets."""
     return float(np.mean(np.abs(y_raw - np.asarray(gilbert_flow(pressure, choke, glr)))))
@@ -127,7 +140,7 @@ def _epoch_program(config: TrainJobConfig) -> tuple[str, str]:
         return "per_batch", (
             "jit_epoch=True asks for the scanned epoch, which is not ported "
             "(ROADMAP.md Queue 1 item 12); per-batch steps run the same math, "
-            "since the LSTM has no dropout"
+            "since the ported models run without dropout"
         )
     if config.jit_epoch is None:
         return "per_batch", "auto: per-batch steps are the port's one epoch program"
@@ -190,7 +203,10 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
 
     splits, gilbert_test = _prepare_data(config, schema)
     train_ds, val_ds, test_ds = splits.train, splits.val, splits.test
-    model = build_model(config.model, train_ds.x.shape[-1], **config.model_kwargs)
+    model = build_model(
+        config.model, train_ds.x.shape[-1], window=train_ds.x.shape[-2],
+        **config.model_kwargs,
+    )
     model.reset_parameters(torch.Generator().manual_seed(config.seed))
     model.to(dev)
 
@@ -235,7 +251,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
         }
         save_artifact_meta(
             config.storage_path, config.model, config.model,
-            dict(config.model_kwargs), "windowed", pre, tuple(train_ds.x.shape),
+            _sidecar_kwargs(config.model_kwargs), "windowed", pre,
+            tuple(train_ds.x.shape),
         )
 
     report = TrainReport(

@@ -3,7 +3,7 @@
 Counterpart of the train verb of ``tpuflow/cli.py``::
 
     python -m tpuflow_torch.cli columnNames columnTypes targetColumn storagePath \\
-        [--data PATH] [--model lstm|stacked_lstm] [--epochs N] ... [--device cpu]
+        [--data PATH] [--model lstm|stacked_lstm|attention] [--epochs N] ... [--device cpu]
 
 The positional arguments are the reference's four (reference cnn.py:41-44):
 comma-separated column names, comma-separated types (int|float|anything
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("storagePath", nargs="?", default=None, help="artifact root; best model saved under {storagePath}/models/")
     p.add_argument("--data", default=None, help="headerless CSV data path (omit for synthetic wells)")
     p.add_argument("--well-column", default=None, help="column grouping CSV rows into per-well logs")
-    p.add_argument("--model", default="lstm", help="lstm|stacked_lstm")
+    p.add_argument("--model", default="lstm", help="lstm|stacked_lstm|attention")
     p.add_argument("--model-kwargs", default=None, metavar="JSON",
                    help='JSON dict forwarded to the model family, e.g. \'{"hidden": 32}\'')
     p.add_argument("--epochs", type=int, default=1000)

@@ -4,6 +4,15 @@
 show that a path went through the kernels.
 """
 
+from tpuflow_torch.kernels.attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_dkv,
+    flash_attention_dq,
+    flash_attention_forward,
+    flash_attention_reference,
+)
 from tpuflow_torch.kernels.losses import mae_clip, mae_clip_reference, mae_clip_rows
 from tpuflow_torch.kernels.lstm import (
     lstm_scan,
@@ -16,10 +25,20 @@ KERNELS = {
     "lstm_fwd": lstm_scan,
     "lstm_bwd": lstm_scan_backward,
     "mae_clip": mae_clip_rows,
+    "flash_fwd": flash_attention_forward,
+    "flash_dq": flash_attention_dq,
+    "flash_dkv": flash_attention_dkv,
 }
 
 __all__ = [
     "KERNELS",
+    "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_backward_reference",
+    "flash_attention_dkv",
+    "flash_attention_dq",
+    "flash_attention_forward",
+    "flash_attention_reference",
     "lstm_scan",
     "lstm_scan_backward",
     "lstm_scan_backward_reference",

@@ -40,7 +40,16 @@
 //   h_{t-1}^T dz of the tile to them every step, then writes them once;
 // - shared memory at H = 64 and 16 rows a block: W_h 65,792 B, dW_h 65,536,
 //   the dz double buffer 32,768, the h double buffer 8,192, db 1,024; 173 KB
-//   of the 227 KB. The ceiling is H <= 76 (tpuflow_lstm_bwd_max_hidden);
+//   of the 227 KB. That layout takes H <= 76;
+// - above that a second instantiation keeps only the h and dz double
+//   buffers in shared memory (40 KB at H = 256). It reads W_h from device
+//   memory through the read-only path (__ldg; 1 MB at H = 256, which stays
+//   in the 50 MB L2 across the steps), and keeps the block's dW_h and db
+//   partial in its own slice of the global partial buffers: each thread
+//   still owns the entries tid, tid + nthreads, ... and reads, adds to and
+//   writes back only those, so there are no atomics and no barriers for
+//   them. It takes every H that is a multiple of 4 up to 256
+//   (tpuflow_lstm_bwd_max_hidden), the most threads a block has here;
 // - rows past the batch edge carry zeros and contribute nothing.
 
 #include <cuda_runtime.h>
@@ -60,23 +69,39 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// W_h from shared memory (kSharedW) or from device memory through L2.
+template <bool kSharedW>
+__device__ __forceinline__ float load_w(const float* p) {
+  if constexpr (kSharedW) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
 int tile_rows_for(int H) { return kRowsPerThread * (kThreadsPerBlock / H); }
 
-size_t smem_bytes_for(int H) {
+size_t smem_bytes_for(int H, bool shared_w) {
   const size_t H4 = 4 * (size_t)H;
   const size_t rows = (size_t)tile_rows_for(H);
+  const size_t tiles = 2 * rows * H     // h_{t-1}, double buffered
+                       + 2 * rows * H4;  // dz, double buffered
+  if (!shared_w) return sizeof(float) * tiles;
   return sizeof(float) * ((size_t)H * (H4 + 1)  // W_h, padded rows
-                          + 2 * rows * H        // h_{t-1}, double buffered
-                          + 2 * rows * H4       // dz, double buffered
+                          + tiles
                           + (size_t)H * H4      // dW_h partial
                           + H4);                // db partial
 }
 
+// Any H that is a multiple of 4 up to one thread per hidden unit: the
+// tiles alone take at most 40 KB of shared memory (H = 256).
 bool supported(int H) {
-  return H > 0 && H % 4 == 0 && H <= kThreadsPerBlock &&
-         smem_bytes_for(H) <= kMaxSharedBytes;
+  return H > 0 && H % 4 == 0 && H <= kThreadsPerBlock;
 }
 
+bool shared_w_for(int H) { return smem_bytes_for(H, true) <= kMaxSharedBytes; }
+
+template <bool kSharedW>
 __global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
                                     const float* __restrict__ wh,
                                     const float* __restrict__ bias,
@@ -90,19 +115,25 @@ __global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
   extern __shared__ __align__(16) float smem[];
   constexpr int R = kRowsPerThread;
   const int H4 = 4 * H;
-  const int WS = H4 + 1;  // padded row stride of W_h
+  const int WS = kSharedW ? H4 + 1 : H4;  // row stride of W_h, padded in smem
   const int tile_rows = R * blockDim.y;
-  float* w_s = smem;                        // [H, 4H+1]
-  float* h_s = w_s + H * WS;                // [2, tile_rows, H]
-  float* dz_s = h_s + 2 * tile_rows * H;    // [2, tile_rows, 4H]
-  float* dw_s = dz_s + 2 * tile_rows * H4;  // [H, 4H]
-  float* db_s = dw_s + H * H4;              // [4H]
+  float* w_s = smem;                                  // [H, 4H+1] if kSharedW
+  float* h_s = w_s + (kSharedW ? H * WS : 0);         // [2, tile_rows, H]
+  float* dz_s = h_s + 2 * tile_rows * H;              // [2, tile_rows, 4H]
+  // The dW_h [H, 4H] and db [4H] partial: in shared memory, or this block's
+  // slice of the global partial buffers.
+  float* dw_s = kSharedW ? dz_s + 2 * tile_rows * H4
+                         : dwh_part + (int64_t)blockIdx.x * H * H4;
+  float* db_s = kSharedW ? dw_s + H * H4 : db_part + (int64_t)blockIdx.x * H4;
+  const float* w_src = kSharedW ? w_s : wh;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   for (int e = tid; e < H * H4; e += nthreads) {
-    const int k = e / H4;
-    w_s[k * WS + (e - k * H4)] = wh[e];
+    if (kSharedW) {
+      const int k = e / H4;
+      w_s[k * WS + (e - k * H4)] = wh[e];
+    }
     dw_s[e] = 0.0f;
   }
   for (int n = tid; n < H4; n += nthreads) db_s[n] = 0.0f;
@@ -145,11 +176,11 @@ __global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
         hv[r] = *reinterpret_cast<const float4*>(hp + (r0 + r) * H + kk);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float* w = w_s + (kk + q) * WS;
-        const float wi = w[j];
-        const float wf = w[H + j];
-        const float wg = w[2 * H + j];
-        const float wo = w[3 * H + j];
+        const float* w = w_src + (kk + q) * WS;
+        const float wi = load_w<kSharedW>(w + j);
+        const float wf = load_w<kSharedW>(w + H + j);
+        const float wg = load_w<kSharedW>(w + 2 * H + j);
+        const float wo = load_w<kSharedW>(w + 3 * H + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float hk = lane_of(hv[r], q);
@@ -201,9 +232,12 @@ __global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
     // (3) dh for step t-1: dh[r, j] = sum_n dz[r, n] * W_h[j, n].
 #pragma unroll
     for (int r = 0; r < R; ++r) dh_carry[r] = 0.0f;
-    const float* wj = w_s + j * WS;
+    const float* wj = w_src + j * WS;
     for (int n = 0; n < H4; n += 4) {
-      const float w0 = wj[n], w1 = wj[n + 1], w2 = wj[n + 2], w3 = wj[n + 3];
+      const float w0 = load_w<kSharedW>(wj + n);
+      const float w1 = load_w<kSharedW>(wj + n + 1);
+      const float w2 = load_w<kSharedW>(wj + n + 2);
+      const float w3 = load_w<kSharedW>(wj + n + 3);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float4 d = *reinterpret_cast<const float4*>(dz + (r0 + r) * H4 + n);
@@ -231,23 +265,20 @@ __global__ void lstm_bwd_f32_kernel(const float* __restrict__ xw,
   }
 
   // Each thread wrote only its own entries: no barrier before the store.
-  float* dwp = dwh_part + (int64_t)blockIdx.x * H * H4;
-  for (int e = tid; e < H * H4; e += nthreads) dwp[e] = dw_s[e];
-  for (int n = tid; n < H4; n += nthreads)
-    db_part[(int64_t)blockIdx.x * H4 + n] = db_s[n];
+  if (kSharedW) {
+    float* dwp = dwh_part + (int64_t)blockIdx.x * H * H4;
+    for (int e = tid; e < H * H4; e += nthreads) dwp[e] = dw_s[e];
+    for (int n = tid; n < H4; n += nthreads)
+      db_part[(int64_t)blockIdx.x * H4 + n] = db_s[n];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest hidden size the kernel takes (a multiple of 4).
-int tpuflow_lstm_bwd_max_hidden(void) {
-  int best = 0;
-  for (int H = 4; H <= kThreadsPerBlock; H += 4)
-    if (supported(H)) best = H;
-  return best;
-}
+// Largest hidden size the kernel takes (any multiple of 4 up to it).
+int tpuflow_lstm_bwd_max_hidden(void) { return kThreadsPerBlock; }
 
 // Blocks for batch B at hidden size H (the leading size of the partials),
 // or 0 when the kernel does not take H.
@@ -258,21 +289,23 @@ int tpuflow_lstm_bwd_blocks(int B, int H) {
 }
 
 // Launch shape for hidden size H: blockDim (H, y) with y = 256 / H, and
-// kRowsPerThread * y rows a block. Returns 0, or the CUDA error code.
+// kRowsPerThread * y rows a block; W_h and the partial in shared memory
+// where they fit, else in device memory. Returns 0, or the CUDA error code.
 int tpuflow_lstm_bwd_f32(const float* xw, const float* wh, const float* b,
                          const float* hs, const float* cs, const float* dhs,
                          float* dxw, float* dwh_part, float* db_part, int T,
                          int B, int H, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (!supported(H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_for(H);
+  const bool shared_w = shared_w_for(H);
+  const size_t smem = smem_bytes_for(H, shared_w);
+  auto kernel = shared_w ? lstm_bwd_f32_kernel<true> : lstm_bwd_f32_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(H, kThreadsPerBlock / H);
   const dim3 grid((unsigned)tpuflow_lstm_bwd_blocks(B, H));
-  lstm_bwd_f32_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       xw, wh, b, hs, cs, dhs, dxw, dwh_part, db_part, T, B, H);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,12 @@
 //   needs no exchange between threads, and it keeps c in registers in f32;
 // - W_h (H x 4H f32, 64 KB at H=64) is copied once into dynamic shared
 //   memory and read from there for all T steps; each value read feeds
-//   kRowsPerThread rows, and neighbouring threads read neighbouring columns;
+//   kRowsPerThread rows, and neighbouring threads read neighbouring columns.
+//   Where W_h does not fit (H > 116: 256 KB at H = 128), a second
+//   instantiation reads it from device memory through the read-only path
+//   (__ldg); at H = 256 it is 1 MB, which stays in the 50 MB L2 across the
+//   steps. It takes every H that is a multiple of 4 up to 256, the most
+//   threads a block has here (one per hidden unit);
 // - h of the tile lives in shared memory, double buffered (read one buffer,
 //   write the other), so one __syncthreads() per step suffices;
 // - xw_t is read from global memory each step (coalesced along j), so there
@@ -47,6 +52,23 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// W_h from shared memory (kSharedW) or from device memory through L2.
+template <bool kSharedW>
+__device__ __forceinline__ float load_w(const float* p) {
+  if constexpr (kSharedW) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+size_t smem_bytes_for(int H, bool shared_w) {
+  const size_t tile_rows = (size_t)(kThreadsPerBlock / H) * kRowsPerThread;
+  return sizeof(float) *
+         ((shared_w ? (size_t)H * 4 * H : 0) + 2 * tile_rows * H);
+}
+
+template <bool kSharedW>
 __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
                                     const float* __restrict__ wh,
                                     const float* __restrict__ bias,
@@ -57,12 +79,14 @@ __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
   constexpr int R = kRowsPerThread;
   const int H4 = 4 * H;
   const int tile_rows = R * blockDim.y;
-  float* w_s = smem;              // [H, 4H]
-  float* h_s = smem + H * H4;     // [2, tile_rows, H]
+  float* w_s = smem;                           // [H, 4H] when kSharedW
+  float* h_s = smem + (kSharedW ? H * H4 : 0);  // [2, tile_rows, H]
+  const float* w_src = kSharedW ? w_s : wh;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < H * H4; i += nthreads) w_s[i] = wh[i];
+  if (kSharedW)
+    for (int i = tid; i < H * H4; i += nthreads) w_s[i] = wh[i];
   for (int i = tid; i < 2 * tile_rows * H; i += nthreads) h_s[i] = 0.0f;
 
   const int j = threadIdx.x;
@@ -110,11 +134,11 @@ __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
         hv[r] = *reinterpret_cast<const float4*>(h_in + (r0 + r) * H + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float* w = w_s + (k + kk) * H4;
-        const float wi = w[j];
-        const float wf = w[H + j];
-        const float wg = w[2 * H + j];
-        const float wo = w[3 * H + j];
+        const float* w = w_src + (k + kk) * H4;
+        const float wi = load_w<kSharedW>(w + j);
+        const float wf = load_w<kSharedW>(w + H + j);
+        const float wg = load_w<kSharedW>(w + 2 * H + j);
+        const float wo = load_w<kSharedW>(w + 3 * H + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float hk = lane_of(hv[r], kk);
@@ -152,8 +176,12 @@ __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
 
 extern "C" {
 
+// Largest hidden size the kernel takes (any multiple of 4 up to it).
+int tpuflow_lstm_fwd_max_hidden(void) { return kThreadsPerBlock; }
+
 // Launch shape for hidden size H: blockDim (H, y) with y = 256 / H, and
-// kRowsPerThread * y rows a block. Returns 0, or the CUDA error code.
+// kRowsPerThread * y rows a block; W_h in shared memory where it fits, else
+// read through L2. Returns 0, or the CUDA error code.
 int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b,
                          float* hs, float* cs, int T, int B, int H,
                          void* stream) {
@@ -162,17 +190,16 @@ int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b,
     return (int)cudaErrorInvalidValue;
   const int ty = kThreadsPerBlock / H;
   const int tile_rows = ty * kRowsPerThread;
-  const size_t smem =
-      sizeof(float) * ((size_t)H * 4 * H + 2 * (size_t)tile_rows * H);
-  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  const bool shared_w = smem_bytes_for(H, true) <= kMaxSharedBytes;
+  const size_t smem = smem_bytes_for(H, shared_w);
+  auto kernel = shared_w ? lstm_fwd_f32_kernel<true> : lstm_fwd_f32_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(H, ty);
   const dim3 grid((unsigned)((B + tile_rows - 1) / tile_rows));
-  lstm_fwd_f32_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      xw, wh, b, hs, cs, T, B, H);
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(xw, wh, b, hs, cs, T, B,
+                                                      H);
   return (int)cudaGetLastError();
 }
 

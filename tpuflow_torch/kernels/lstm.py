@@ -11,14 +11,20 @@ Kernels:
   it is bound by operations: at the serving shape (T=24, B=4096, H=64) the
   recurrent product is 3.2 GFLOP on the f32 CUDA cores against 125 MB of
   ``xw`` read and ``hs`` written. It keeps ``W_h`` in shared memory for all
-  steps, ``h`` in shared memory, ``c`` in registers, and gives each thread
-  the four gate columns of one hidden unit so the gate math needs no
-  exchange between threads.
+  steps (read through L2 instead where it does not fit, H > 116), ``h`` in
+  shared memory, ``c`` in registers, and gives each thread the four gate
+  columns of one hidden unit so the gate math needs no exchange between
+  threads.
 - ``csrc/lstm_bwd.cu`` replaces ``_bwd_kernel`` (launched by ``_bwd``): the
   reverse-time recurrence with the gates recomputed from ``(xw, h_{t-1})``.
   Three ``H x 4H`` products per row and step bound it by operations; it
   writes ``dxw`` and one ``dW_h``/``db`` partial per block, which
-  ``lstm_scan_backward`` sums over the block axis in a fixed order.
+  ``lstm_scan_backward`` sums over the block axis in a fixed order. Above
+  H = 76 it reads ``W_h`` through L2 and keeps the partial in the global
+  buffer.
+
+Both take every hidden size that is a multiple of 4 up to 256 (one thread
+per hidden unit); beyond that the wrappers raise, naming the limit.
 
 ``lstm_scan`` is differentiable: when gradients are needed it runs as a
 ``torch.autograd.Function`` whose forward keeps the cell states and whose
@@ -98,32 +104,37 @@ def _library(stem: str) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             lib.tpuflow_lstm_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.tpuflow_lstm_bwd_blocks.restype = ctypes.c_int
-            lib.tpuflow_lstm_bwd_max_hidden.argtypes = []
-            lib.tpuflow_lstm_bwd_max_hidden.restype = ctypes.c_int
+        max_hidden = getattr(lib, f"tpuflow_{stem}_max_hidden")
+        max_hidden.argtypes = []
+        max_hidden.restype = ctypes.c_int
         fn.restype = ctypes.c_int
         _libs[stem] = lib
     return lib
 
 
+def _refuse_hidden(stem: str, H: int) -> None:
+    """Raise, naming the limit, when kernel ``stem`` does not take hidden
+    size H (a multiple of 4 up to the most threads a block gives it)."""
+    limit = getattr(_library(stem), f"tpuflow_{stem}_max_hidden")()
+    if H <= 0 or H % 4 or H > limit:
+        raise ValueError(
+            f"{stem} takes a hidden size that is a multiple of 4 up to "
+            f"{limit} (one thread per hidden unit in a block); got H={H}"
+        )
+
+
 def _bwd_blocks(B: int, H: int) -> int:
     """Blocks (partials) of the backward kernel for batch B; raises when the
     kernel does not take hidden size H."""
-    lib = _library("lstm_bwd")
-    blocks = lib.tpuflow_lstm_bwd_blocks(B, H)
-    if blocks <= 0:
-        raise ValueError(
-            f"lstm_bwd takes a hidden size that is a multiple of 4 up to "
-            f"{lib.tpuflow_lstm_bwd_max_hidden()} (W_h, the dW_h partial and "
-            f"the dz and h tiles must fit in one block's shared memory); "
-            f"got H={H}"
-        )
-    return blocks
+    _refuse_hidden("lstm_bwd", H)
+    return _library("lstm_bwd").tpuflow_lstm_bwd_blocks(B, H)
 
 
 def _fwd_kernel(xw, wh, b, hs, cs) -> None:
     """Launch ``csrc/lstm_fwd.cu`` on the current stream into ``hs`` (and
     ``cs`` when it is not None)."""
     T, B, H = hs.shape
+    _refuse_hidden("lstm_fwd", H)
     lib = _library("lstm_fwd")
     with torch.cuda.device(xw.device):
         code = lib.tpuflow_lstm_fwd_f32(
@@ -131,11 +142,7 @@ def _fwd_kernel(xw, wh, b, hs, cs) -> None:
             None if cs is None else cs.data_ptr(),
             T, B, H, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(
-        lib, code,
-        f"lstm_fwd launch (T={T}, B={B}, H={H}; H must be a multiple of 4 "
-        "and W_h plus the h tile must fit in shared memory)",
-    )
+    _build.check(lib, code, f"lstm_fwd launch (T={T}, B={B}, H={H})")
 
 
 def _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts) -> None:
