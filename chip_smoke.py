@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero before the result line:
    compiled by ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes the training and serving paths give it (``lstm_fwd``,
-   ``lstm_bwd``, ``mae_clip``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``;
-   the LSTM kernels also at hidden sizes 128 and 256), with CUDA-event
-   timings of the kernel, the plain version and, where one exists, a
-   library call as a yardstick.
+   ``lstm_bwd``, ``mae_clip``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
+   ``ring_round_fwd``, ``ring_round_bwd``; the LSTM kernels also at hidden
+   sizes 128, 256, 50, 300 and 512; the ring rounds at five shapes, each
+   with a diagonal, a past and a future block), with CUDA-event timings of
+   the kernel, the plain version and, where one exists, a library call as a
+   yardstick.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -25,17 +27,29 @@ Phases, in order; any failure exits non-zero before the result line:
    beat the Gilbert baseline. Then, after the counted runs: one batch's
    gradients through the kernels against the plain path, steady train
    samples/s, and a ``torch.profiler`` window of steady steps.
-5. serve   — the trained artifacts (LSTM-64, stacked LSTM, attention) and
+5. ring    — four ranks (``spawn``; NCCL with a card each, else gloo on
+   ``cuda:0`` with the ring's tensors staged through host memory): one
+   batch at window 1024 through ``backend="ring"`` against ``backend=
+   "flash"`` in this process (loss and gradients, ranks bitwise equal,
+   launches of the round kernels); ``train(config)`` of the attention
+   regressor at a 256-step window with the ring on every rank (launches,
+   test MAE within 2% of the single-card run, final parameters bitwise
+   equal, only rank 0 writes the artifact, whose sidecar says ``full``); the
+   SP LSTM ring (``make_sp_forward``) against ``lstm_scan``; and where a
+   ring train step's time goes.
+6. serve   — the trained artifacts (LSTM-64, stacked LSTM, attention, the
+   ring-trained attention at 256 steps) and
    an LSTM-64, a stacked-LSTM and an attention artifact with random weights
    from a seed (written by the port's checkpoint writer) served over
    ``POST /predict`` by the port's HTTP server on the default device; each
    answer is checked for status, count, finite values, agreement with the
    same predictor's plain path, and the kernel launches it caused.
-6. breakdown — after the counted run, where one warm 3912-window request's
+7. breakdown — after the counted run, where one warm 3912-window request's
    time goes: host-clock stages and one ``torch.profiler`` window.
 
 The line before last is ``nvidia-smi``'s name and power limit, the one
-before it the kernels' JSON record (launches from the counted train runs),
+before it the kernels' JSON record (launches from the counted train runs;
+for the ring-round kernels, rank 0's in the ring training),
 and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``tpuflow``.
 """
@@ -92,6 +106,26 @@ FLASH_GRAD_TOL = 1e-4
 # and a ragged last tile at another head dim.
 FLASH_SHAPES = ((80, 24, 16), (80, 256, 16), (16384, 24, 16), (256, 1024, 16),
                 (64, 1000, 64))
+# Ring rounds vs plain, on the card: the forward's m, log-sum-exp m + log(l)
+# and normalised output acc / l within FLASH_ATOL, the quantities flash_fwd
+# is held on (of order 1; the raw l and acc are running sums of up to 2 Tl
+# exponentials, and acc's cancel). The backward normwise within
+# FLASH_GRAD_TOL. (BH, Tl, D): the ring train step (window 256 over 4 ranks),
+# window 1024, a 4096-step log, a ragged chunk, another head dim.
+RING_SHAPES = ((80, 64, 16), (80, 256, 16), (256, 1024, 16), (80, 100, 16), (64, 250, 64))
+# (q_off, k_off) in chunk lengths: the diagonal round, a past and a future block.
+RING_PATTERNS = {"diagonal": (1, 1), "past": (2, 1), "future": (0, 1)}
+RING_RANKS = 4  # the JAX tests' ring (tests/conftest.py RING_DEVICES)
+RING_WINDOW = 1024  # the gradient and SP phases' sequence length
+RING_TRAIN_WINDOW = 256
+RING_TIMEOUT_S = 480.0
+# Ring vs single-card loss and gradients, normwise: the same sums grouped
+# by chunks and rounds.
+RING_GRAD_TOL = 1e-4
+RING_MAE_REL = 0.02  # ring-trained test MAE vs the single-card run
+# SP ring (a loop of lstm_step, cuBLAS products) vs lstm_scan's kernel over
+# 1024 steps, f32: the recurrence contracts, so errors stay at a few ulp.
+SP_ATOL = 1e-5
 LAYERS = {"lstm": 1, "stacked_lstm": 2, "attention": 2}
 # The kernel each family's forward runs (what serving launches).
 FORWARD_KERNEL = {"lstm": "lstm_fwd", "stacked_lstm": "lstm_fwd",
@@ -177,6 +211,27 @@ def flash_dkv_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
     return _bound(nbytes, 8 * BH * D * causal_pairs(Tn))
 
 
+def ring_pairs(Tl: int, q_off: int, k_off: int) -> int:
+    """Allowed (q, k) pairs of one ring round: k_off + j <= q_off + i.
+    Tl(Tl+1)/2 on the diagonal, Tl^2 for a past block, 0 for a future one."""
+    return sum(max(0, min(Tl, q_off + i - k_off + 1)) for i in range(Tl))
+
+
+def ring_fwd_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
+    """Least time for ring_round_fwd: q, k, v, acc, m and l read once, m,
+    l and acc written once; 4*D operations (q.k and p*v) per allowed pair."""
+    nbytes = 4 * (4 * BH * Tl * D + 2 * BH * Tl + BH * Tl * D + 2 * BH * Tl)
+    return _bound(nbytes, 4 * D * BH * pairs)
+
+
+def ring_bwd_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
+    """Least time for ring_round_bwd: q, k, v, do, lse and delta read once,
+    dq, dk and dv written once; 10*D operations per allowed pair (q.k and
+    do.v for each of the two halves, ds*k, ds*q, p*do)."""
+    nbytes = 4 * (4 * BH * Tl * D + 2 * BH * Tl + 3 * BH * Tl * D)
+    return _bound(nbytes, 10 * D * BH * pairs)
+
+
 def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
     """Least time for mae_clip: both operands read once, R sums written;
     4 operations per element (subtract, abs, clip, add)."""
@@ -235,6 +290,7 @@ def phase_kernels(torch) -> dict:
     }
     kernel_lstm_wide(torch)
     records.update(kernel_flash(torch))
+    records.update(kernel_ring(torch))
     return records
 
 
@@ -360,8 +416,10 @@ def kernel_lstm_bwd(torch) -> dict:
 def kernel_lstm_wide(torch) -> None:
     """lstm_fwd and lstm_bwd at hidden sizes past the shared-memory layouts
     (H = 128 and 256, B = 20 and 4096): W_h read through L2, and the
-    backward's partial kept in the global buffer. Same tolerances as at
-    H = 64; times are logged, the JSON records stay those of H = 64."""
+    backward's partial kept in the global buffer; and at H = 50, 300 and
+    512, which run the layout with several units a thread and h read one
+    float at a time. Same tolerances as at H = 64; times are logged, the
+    JSON records stay those of H = 64."""
     from tpuflow_torch.kernels.lstm import (
         lstm_scan,
         lstm_scan_backward,
@@ -371,7 +429,7 @@ def kernel_lstm_wide(torch) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    for Hn in (128, 256):
+    for Hn in (128, 256, 50, 300, 512):
         for B in (TRAIN_BATCH, 4096):
             xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
             wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
@@ -505,6 +563,96 @@ def kernel_flash(torch) -> dict:
     return records
 
 
+def kernel_ring(torch) -> dict:
+    """ring_round_fwd and ring_round_bwd against their plain versions at
+    RING_SHAPES, each at the three RING_PATTERNS. The forward starts from a
+    genuine running state (the plain round of a diagonal block), and the
+    backward takes the log-sum-exp and delta of the forward's result.
+    Returns the records of the ring train step's diagonal round."""
+    from tpuflow_torch.kernels.attention import (
+        ring_round_bwd,
+        ring_round_bwd_reference,
+        ring_round_fwd,
+        ring_round_fwd_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    log(f"[kernel] ring_round_fwd/ring_round_bwd vs their plain versions: f32; the "
+        f"forward's m, lse = m + log(l) and o = acc / l within atol={FLASH_ATOL}; the "
+        f"backward normwise within {FLASH_GRAD_TOL}; library: none (no single PyTorch "
+        "call returns a round's state or its partial gradients)")
+    records, worst = {}, {"ring_round_fwd": 0.0, "ring_round_bwd": 0.0}
+    for BH, Tl, D in RING_SHAPES:
+        q, k, v, do, k0, v0 = (torch.randn((BH, Tl, D), generator=gen, device=dev)
+                               for _ in range(6))
+        scale = D ** -0.5
+        big = Tl >= 1024
+        for pattern, (qo, ko) in RING_PATTERNS.items():
+            q_off, k_off = qo * Tl, ko * Tl
+            start = (torch.full((BH, Tl), -1e30, device=dev), torch.zeros((BH, Tl), device=dev),
+                     torch.zeros((BH, Tl, D), device=dev))
+            m, l, acc = ring_round_fwd_reference(q, k0, v0, *start, q_off, q_off, scale)
+            got = ring_round_fwd(q, k, v, m, l, acc, q_off, k_off, scale)
+            torch.cuda.synchronize()
+            want = ring_round_fwd_reference(q, k, v, m, l, acc, q_off, k_off, scale)
+            (gm, gl, ga), (wm, wl, wa) = got, want
+            fwd_err = max((gm - wm).abs().max().item(),
+                          ((gm + torch.log(gl)) - (wm + torch.log(wl))).abs().max().item(),
+                          ((ga / gl[..., None]) - (wa / wl[..., None])).abs().max().item())
+            if not fwd_err <= FLASH_ATOL:
+                raise AssertionError(
+                    f"ring_round_fwd disagrees with its plain version at {(BH, Tl, D)}, "
+                    f"{pattern}: max abs err {fwd_err:.3e} on m, lse or acc / l")
+            lse = wm + torch.log(wl)
+            delta = (do * (wa / wl[..., None])).sum(-1)
+            dgot = ring_round_bwd(q, k, v, do, lse, delta, q_off, k_off, scale)
+            torch.cuda.synchronize()
+            dwant = ring_round_bwd_reference(q, k, v, do, lse, delta, q_off, k_off, scale)
+            norm = {n: normwise_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), dgot, dwant)}
+            bwd_err = max((g - w).abs().max().item() for g, w in zip(dgot, dwant))
+            if pattern == "future" and any(g.any().item() for g in dgot):
+                raise AssertionError(f"ring_round_bwd: a future block at {(BH, Tl, D)} "
+                                     "gave non-zero gradients")
+            bad = {n: e for n, e in norm.items() if not e <= FLASH_GRAD_TOL}
+            if bad:
+                raise AssertionError(f"ring_round_bwd disagrees with its plain version at "
+                                     f"{(BH, Tl, D)}, {pattern}: normwise {bad}")
+            worst["ring_round_fwd"] = max(worst["ring_round_fwd"], fwd_err)
+            worst["ring_round_bwd"] = max(worst["ring_round_bwd"], bwd_err)
+            ms = {
+                "ring_round_fwd": cuda_ms(
+                    torch, lambda: ring_round_fwd(q, k, v, m, l, acc, q_off, k_off, scale)),
+                "ring_round_bwd": cuda_ms(
+                    torch, lambda: ring_round_bwd(q, k, v, do, lse, delta, q_off, k_off, scale)),
+            }
+            plain_ms = {
+                "ring_round_fwd": cuda_ms(torch, lambda: ring_round_fwd_reference(
+                    q, k, v, m, l, acc, q_off, k_off, scale), runs=5 if big else 10),
+                "ring_round_bwd": cuda_ms(torch, lambda: ring_round_bwd_reference(
+                    q, k, v, do, lse, delta, q_off, k_off, scale), runs=5 if big else 10),
+            }
+            pairs = ring_pairs(Tl, q_off, k_off)
+            bounds = {"ring_round_fwd": ring_fwd_bound(BH, Tl, D, pairs),
+                      "ring_round_bwd": ring_bwd_bound(BH, Tl, D, pairs)}
+            log(f"[kernel] ring (BH, Tl, D)=({BH}, {Tl}, {D}) {pattern:8s} pairs/head={pairs}: "
+                f"fwd max_abs_err={fwd_err:.3e} kernel_ms={ms['ring_round_fwd']:.4f} "
+                f"plain_ms={plain_ms['ring_round_fwd']:.4f} "
+                f"bound_ms={bounds['ring_round_fwd'][0]:.6f} ({bounds['ring_round_fwd'][1]}); "
+                "bwd normwise_err=" + ",".join(f"{n}:{e:.3e}" for n, e in norm.items())
+                + f" kernel_ms={ms['ring_round_bwd']:.4f} plain_ms={plain_ms['ring_round_bwd']:.4f} "
+                f"bound_ms={bounds['ring_round_bwd'][0]:.6f} ({bounds['ring_round_bwd'][1]}) "
+                "library_ms=null")
+            if (BH, Tl, D) == RING_SHAPES[0] and pattern == "diagonal":
+                for name in ms:
+                    records[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
+                                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                                     "library_ms": None}
+    for name, record in records.items():
+        record["max_abs_err"] = worst[name]
+    return records
+
+
 def kernel_mae_clip(torch) -> dict:
     """mae_clip against mae_clip_reference at [1, 480] (the train loss at
     batch 20), [20, 24] (eval, one row per example) and [1, 4096*24];
@@ -560,6 +708,7 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     backward = ("flash_dq", "flash_dkv") if config.model == "attention" else ("lstm_bwd",)
     want = {
         "lstm_fwd": 0, "lstm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        "ring_round_fwd": 0, "ring_round_bwd": 0,
         FORWARD_KERNEL[config.model]: layers * (train_b + val_b) * epochs + layers * test_b,
         "mae_clip": (train_b + val_b) * epochs + test_b,
     }
@@ -571,12 +720,12 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     return want, sizes
 
 
-def phase_train(torch, root: str, smi: str) -> dict:
+def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
     """Train LSTM-64 (3 epochs), the stacked LSTM (2 epochs) and the
     attention regressor (3 epochs) through ``train(TrainJobConfig(...))`` at
     its defaults into ``root``, then the attention regressor at a 256-step
     window (1 epoch, into a directory of its own); returns the kernels'
-    launches summed over the counted runs."""
+    launches summed over the counted runs, and the 256-step run's test MAE."""
     from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.api.train_api import train
     from tpuflow_torch.data.pipeline import prepare_windowed
@@ -625,6 +774,8 @@ def phase_train(torch, root: str, smi: str) -> dict:
             totals[k] += got[k]
         if window == T:
             models.append((model_name, report.result.model))
+        else:
+            mae_256 = report.test_mae
 
     # After the counted runs: gradients, steady steps, profile.
     splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
@@ -634,7 +785,7 @@ def phase_train(torch, root: str, smi: str) -> dict:
     for model_name, model in models:
         check_gradients(torch, model_name, model, x[:TRAIN_BATCH], y[:TRAIN_BATCH])
         steady_steps(torch, model_name, model, x, y, smi)
-    return totals
+    return totals, mae_256
 
 
 def check_gradients(torch, model_name, model, x, y) -> None:
@@ -709,6 +860,304 @@ def steady_steps(torch, model_name, model, x, y, smi) -> None:
         + "; ".join(f"{k[:60]}={v:.4f}" for k, v in top))
 
 
+def _ring_batch() -> tuple[np.ndarray, np.ndarray]:
+    """The gradient phase's batch: 20 windows of RING_WINDOW steps, 5
+    features, and their targets, from a seed."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((TRAIN_BATCH, RING_WINDOW, len(FEATURES))).astype(np.float32)
+    return x, rng.standard_normal((TRAIN_BATCH, RING_WINDOW)).astype(np.float32)
+
+
+def _loss_and_grads(torch, backend: str, device, mesh=None):
+    """One batch through the attention regressor at flax's defaults and
+    RING_WINDOW, params from a seed: ``(loss, predictions, {name: grad})``."""
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.models import build_model
+
+    model = build_model("attention", len(FEATURES), window=RING_WINDOW, backend=backend,
+                        mesh=mesh)
+    model.reset_parameters(torch.Generator().manual_seed(7))
+    model.to(device)
+    x, y = (torch.from_numpy(a).to(device) for a in _ring_batch())
+    pred = model(x)
+    loss = mae_clip(y, pred)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()}
+    return loss.item(), pred.detach().cpu().numpy(), grads
+
+
+def _ring_train_config(root: str, mesh=None):
+    from tpuflow_torch.api.config import TrainJobConfig
+
+    kwargs = {} if mesh is None else {"backend": "ring", "mesh": mesh}
+    return TrainJobConfig(model="attention", max_epochs=1, window=RING_TRAIN_WINDOW,
+                          verbose=False, storage_path=os.path.join(root, "ring"),
+                          model_kwargs=kwargs)
+
+
+def ring_ranks(mesh, root: str) -> dict:
+    """One rank's part of the ring phase, run by every rank together:
+    gradients of one batch, ``train(config)`` with the ring, the split of a
+    steady ring train step, and the SP ring's forward. Returns numpy
+    results for the parent to hold against its single-card references."""
+    import torch
+
+    from tpuflow_torch.api import predict_api
+    from tpuflow_torch.api.train_api import train
+    from tpuflow_torch.kernels import KERNELS
+    from tpuflow_torch.storage.checkpoint import StoreCheckpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device)}
+
+    def counts():
+        return {n: k.launches for n, k in KERNELS.items()}
+
+    for k in KERNELS.values():
+        k.launches = 0
+    loss, pred, grads = _loss_and_grads(torch, "ring", mesh.device, mesh)
+    torch.cuda.synchronize()
+    out["grads"] = {"loss": loss, "pred": pred, "grads": grads, "launches": counts()}
+
+    # Count each rank's artifact writes: only rank 0 may write.
+    writes = {"checkpoints": 0, "sidecars": 0}
+    save, meta = StoreCheckpointer.maybe_save, predict_api.save_artifact_meta
+
+    def counted_save(self, *a, **kw):
+        writes["checkpoints"] += 1
+        return save(self, *a, **kw)
+
+    def counted_meta(*a, **kw):
+        writes["sidecars"] += 1
+        return meta(*a, **kw)
+
+    StoreCheckpointer.maybe_save, predict_api.save_artifact_meta = counted_save, counted_meta
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = train(_ring_train_config(root, mesh))
+    torch.cuda.synchronize()
+    out["train"] = {
+        "seconds": time.perf_counter() - t0, "launches": counts(), "writes": writes,
+        "history": report.result.history, "test_loss": report.test_loss,
+        "test_mae": report.test_mae, "gilbert_mae": report.gilbert_mae,
+        "params": {n: p.detach().cpu().numpy()
+                   for n, p in report.result.model.named_parameters()},
+    }
+    out["split"] = _ring_step_split(torch, mesh, report.result.model)
+    out["sp"] = _rank_sp(torch, mesh)
+    return out
+
+
+def _ring_step_split(torch, mesh, model) -> dict:
+    """Where a steady ring train step goes (batch 20, window 256): host
+    clock over 20 steps ending in a synchronise, one profiled window of 5
+    steps for device time by kernel, and the ring's communication timed on
+    its own at the step's shapes, 20 times each: a rotation of (k, v), one
+    of (k, v, dk, dv), the output's all-gather and the input gradients'
+    all-gather. Every rank runs it; rank 0's numbers are reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.parallel.collectives import _gather, rotate
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, RING_TRAIN_WINDOW, len(FEATURES))).astype(np.float32)).to(mesh.device)
+    y = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, RING_TRAIN_WINDOW)).astype(np.float32)).to(mesh.device)
+    step = make_train_step(model, keras_sgd().bind(model.parameters()), mae_clip)
+    for _ in range(3):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(x, y)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_ms_by_kernel(prof)
+    ring_ms = sum(v for k, v in by_kernel.items() if "ring_round" in k)
+
+    heads, dim = 4, 64
+    Tl = RING_TRAIN_WINDOW // mesh.size
+    chunk = torch.randn((TRAIN_BATCH * heads, Tl, dim // heads), device=mesh.device)
+    flat = torch.randn(3 * chunk.numel(), device=mesh.device)
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    comm = {
+        "rotate_kv_ms": timed(lambda: rotate((chunk, chunk), mesh)),
+        "rotate_kv_dkdv_ms": timed(lambda: rotate((chunk, chunk, chunk, chunk), mesh)),
+        "gather_out_ms": timed(lambda: _gather(chunk, mesh, 1)),
+        "gather_grads_ms": timed(lambda: _gather(flat, mesh, 0)),
+    }
+    n, layers = mesh.size, LAYERS["attention"]
+    # Per train step: each layer's forward rotates (k, v) n - 1 times and
+    # gathers its output once; its backward rotates (k, v, dk, dv) n - 1
+    # times, (dk, dv) once more, and gathers the q, k, v gradients once.
+    per_step = {"rotate_kv": layers * (n - 1 + 1), "rotate_kv_dkdv": layers * (n - 1),
+                "gather_out": layers, "gather_grads": layers}
+    comm_ms = (per_step["rotate_kv"] * comm["rotate_kv_ms"]
+               + per_step["rotate_kv_dkdv"] * comm["rotate_kv_dkdv_ms"]
+               + per_step["gather_out"] * comm["gather_out_ms"]
+               + per_step["gather_grads"] * comm["gather_grads_ms"])
+    return {"step_ms": step_ms, "profiled_wall_ms_5": wall_ms,
+            "device_busy_ms_5": sum(by_kernel.values()), "ring_kernels_ms_5": ring_ms,
+            "comm_each": comm, "comm_per_step": per_step, "comm_ms_per_step": comm_ms}
+
+
+def _sp_case(torch, device):
+    """The SP phase's LSTM-64 layer (params from a seed) and input
+    ``[20, RING_WINDOW, 5]``."""
+    from tpuflow_torch.models.lstm import LSTMLayer
+
+    layer = LSTMLayer(len(FEATURES), H)
+    layer.reset_parameters(torch.Generator().manual_seed(3))
+    layer.to(device)
+    x = np.random.default_rng(13).standard_normal(
+        (TRAIN_BATCH, RING_WINDOW, len(FEATURES))).astype(np.float32)
+    return layer, torch.from_numpy(x).to(device)
+
+
+def _rank_sp(torch, mesh) -> np.ndarray:
+    from tpuflow_torch.parallel import make_sp_forward
+
+    layer, x = _sp_case(torch, mesh.device)
+    with torch.no_grad():
+        y = make_sp_forward(mesh, H)(layer.w_x, layer.w_h, layer.b, x)
+    return y.cpu().numpy()
+
+
+def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
+    """The ring on RING_RANKS ranks against single-card references in this
+    process; returns rank 0's kernel launches in the ring training."""
+    from tpuflow_torch.api.config import TrainJobConfig
+    from tpuflow_torch.kernels import KERNELS
+    from tpuflow_torch.parallel import spawn
+    from tpuflow_torch.parallel.distributed import default_backend
+
+    backend = default_backend(RING_RANKS)
+    where = ("each rank on a card of its own" if backend == "nccl" else
+             "all ranks on cuda:0, the ring's tensors staged through host memory")
+    log(f"[ring] {RING_RANKS} ranks over {backend}: {where} "
+        f"({torch.cuda.device_count()} card(s); card: {smi})")
+    t0 = time.perf_counter()
+    ranks = spawn(ring_ranks, RING_RANKS, root, timeout_s=RING_TIMEOUT_S)
+    log(f"[ring] ranks done in {time.perf_counter() - t0:.1f} s (spawn included): "
+        + ", ".join(f"rank {r['rank']} {r['backend']} {r['device']}" for r in ranks))
+
+    # 1. One batch's loss and gradients against backend="flash" here.
+    for k in KERNELS.values():
+        k.launches = 0
+    loss, pred, grads = _loss_and_grads(torch, "flash", torch.device("cuda"))
+    for r in ranks[1:]:
+        got = r["grads"]
+        if not (np.array_equal(got["pred"], ranks[0]["grads"]["pred"]) and all(
+                np.array_equal(got["grads"][n], ranks[0]["grads"]["grads"][n]) for n in grads)):
+            raise AssertionError(f"ring rank {r['rank']}'s outputs or gradients differ "
+                                 "from rank 0's")
+    g0 = ranks[0]["grads"]
+    errs = {n: float(np.abs(g0["grads"][n] - g).max() / max(np.abs(g).max(), 1e-30))
+            for n, g in grads.items()}
+    loss_err = abs(g0["loss"] - loss) / abs(loss)
+    pred_err = float(np.abs(g0["pred"] - pred).max() / np.abs(pred).max())
+    log(f"[ring] window {RING_WINDOW}, batch {TRAIN_BATCH}, backend ring vs flash: loss "
+        f"{g0['loss']:.6f} vs {loss:.6f} (rel err {loss_err:.2e}), predictions normwise "
+        f"{pred_err:.2e}, gradients normwise " + ", ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" (tolerance {RING_GRAD_TOL}); all {RING_RANKS} ranks bitwise equal; rank 0 "
+        f"launches {g0['launches']}")
+    bad = {n: e for n, e in errs.items() if not e <= RING_GRAD_TOL}
+    if bad or not loss_err <= RING_GRAD_TOL or not pred_err <= RING_GRAD_TOL:
+        raise AssertionError(f"ring gradients disagree with the flash path: {bad}, "
+                             f"loss {loss_err:.2e}, predictions {pred_err:.2e}")
+    layers, n = LAYERS["attention"], RING_RANKS
+    want = {**dict.fromkeys(KERNELS, 0), "mae_clip": 1, "ring_round_fwd": layers * n,
+            "ring_round_bwd": layers * n}
+    for r in ranks:
+        if r["grads"]["launches"] != want:
+            raise AssertionError(f"ring rank {r['rank']} launches {r['grads']['launches']} "
+                                 f"!= {want}")
+
+    # 2. train(config) with the ring on every rank.
+    plain_config = TrainJobConfig(model="attention", max_epochs=1, window=RING_TRAIN_WINDOW)
+    want, sizes = expected_train_launches(plain_config)
+    want["ring_round_fwd"], want["ring_round_bwd"] = want["flash_fwd"] * n, want["flash_dq"] * n
+    want["flash_fwd"] = want["flash_dq"] = want["flash_dkv"] = 0
+    t0 = ranks[0]["train"]
+    for h in t0["history"]:
+        log(f"[ring] train epoch {h['epoch']}: loss={h['loss']:.6f} "
+            f"val_loss={h['val_loss']:.6f} time_s={h['time']:.3f}")
+    log(f"[ring] train at window {RING_TRAIN_WINDOW}, 1 epoch, {t0['seconds']:.2f} s on rank 0; "
+        f"data {sizes}; test_loss={t0['test_loss']:.6f} test_mae={t0['test_mae']:.2f} "
+        f"gilbert_mae={t0['gilbert_mae']:.2f} stb/day; single-card run {single_mae:.2f} "
+        f"(tolerance {RING_MAE_REL:.0%}); launches {t0['launches']}, expected {want}; "
+        "writes " + ", ".join(f"rank {r['rank']} {r['train']['writes']}" for r in ranks))
+    for r in ranks:
+        tr = r["train"]
+        if tr["launches"] != want:
+            raise AssertionError(f"ring train rank {r['rank']}: launches {tr['launches']} != {want}")
+        if not (np.isfinite([[h["loss"], h["val_loss"]] for h in tr["history"]]).all()
+                and np.isfinite(tr["test_loss"])):
+            raise AssertionError(f"ring train rank {r['rank']}: non-finite losses")
+        if any(not np.array_equal(tr["params"][p], t0["params"][p]) for p in t0["params"]):
+            raise AssertionError(f"ring train rank {r['rank']}: final parameters differ from "
+                                 "rank 0's")
+        wrote = tr["writes"]["checkpoints"] + tr["writes"]["sidecars"]
+        if (r["rank"] == 0) != (wrote > 0):
+            raise AssertionError(f"ring train rank {r['rank']} wrote {tr['writes']}: only "
+                                 "rank 0 may write the artifact")
+    if not abs(t0["test_mae"] - single_mae) <= RING_MAE_REL * single_mae:
+        raise AssertionError(f"ring-trained test MAE {t0['test_mae']:.2f} is not within "
+                             f"{RING_MAE_REL:.0%} of the single-card {single_mae:.2f}")
+    if not t0["test_mae"] < t0["gilbert_mae"]:
+        raise AssertionError("the ring-trained model does not beat the Gilbert baseline")
+    with open(os.path.join(root, "ring", "meta", "attention.json")) as f:
+        sidecar = json.load(f)["model_kwargs"]
+    if sidecar.get("backend") != "full" or "mesh" in sidecar:
+        raise AssertionError(f"ring artifact's sidecar kwargs {sidecar}")
+    log(f"[ring] the artifact's sidecar model_kwargs: {sidecar}")
+
+    # 3. Where a steady ring train step goes (rank 0).
+    sp = ranks[0]["split"]
+    log(f"[ring] steady ring train step, batch {TRAIN_BATCH}, window {RING_TRAIN_WINDOW}: "
+        f"{sp['step_ms']:.3f} ms (host clock over 20 steps); profiled 5 steps: "
+        f"wall_ms={sp['profiled_wall_ms_5']:.3f} device_busy_ms={sp['device_busy_ms_5']:.3f} "
+        f"ring_kernels_ms={sp['ring_kernels_ms_5']:.3f}; communication alone, median of 20: "
+        + ", ".join(f"{k}={v:.3f}" for k, v in sp["comm_each"].items())
+        + f", per step {sp['comm_per_step']} = {sp['comm_ms_per_step']:.3f} ms "
+        f"({ranks[0]['backend']}; card: {smi})")
+
+    # 4. The SP ring against lstm_scan's kernel.
+    layer, x = _sp_case(torch, torch.device("cuda"))
+    with torch.no_grad():
+        want_y = layer(x).cpu().numpy()
+    errs = [float(np.abs(r["sp"] - want_y).max()) for r in ranks]
+    log(f"[ring] SP LSTM ring (make_sp_forward, H={H}) at B={TRAIN_BATCH}, T={RING_WINDOW} "
+        f"vs lstm_scan: max abs err by rank {[f'{e:.2e}' for e in errs]} (tolerance {SP_ATOL})")
+    if max(errs) > SP_ATOL:
+        raise AssertionError(f"the SP ring disagrees with lstm_scan: {errs}")
+    return t0["launches"]
+
+
 def _columns(n_wells: int, steps: int, seed: int, well_ids: bool) -> dict:
     from tpuflow_torch.data.synthetic import generate_wells, wells_to_table
 
@@ -731,10 +1180,10 @@ def _post(url: str, spec: dict) -> tuple[int, dict]:
 
 
 def phase_serve(torch, root: str, smi: str) -> dict:
-    """Serve the trained artifacts in ``root`` (no well column in their
-    sidecars: each request is one series) and three with random weights
-    (well column "well") over HTTP; returns each kernel's launches over the
-    serving run."""
+    """Serve the trained artifacts in ``root`` and the ring-trained one in
+    ``root/ring`` (no well column in their sidecars: each request is one
+    series) and three with random weights (well column "well") over HTTP;
+    returns each kernel's launches over the serving run."""
     from tpuflow_torch.api.predict_api import save_artifact_meta
     from tpuflow_torch.convert import model_leaves
     from tpuflow_torch.data.synthetic import write_csv
@@ -754,9 +1203,11 @@ def phase_serve(torch, root: str, smi: str) -> dict:
         "schema_columns": [{"name": n, "kind": k} for n, k in SCHEMA],
         "target": "flow",
     }
-    random_artifacts = [("lstm64", "lstm", True), ("stacked", "stacked_lstm", True),
-                        ("attn", "attention", True)]
-    for seed, (name, model_name, _) in enumerate(random_artifacts):
+    # (name, family, grouped by well, storage root, window)
+    random_artifacts = [("lstm64", "lstm", True, root, T),
+                        ("stacked", "stacked_lstm", True, root, T),
+                        ("attn", "attention", True, root, T)]
+    for seed, (name, model_name, *_) in enumerate(random_artifacts):
         model = build_model(model_name, len(FEATURES), window=T)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         StoreCheckpointer(root, name).maybe_save(1, model_leaves(model), val_loss=0.0)
@@ -772,8 +1223,10 @@ def phase_serve(torch, root: str, smi: str) -> dict:
         ("ragged tail, 11 wells", "columns", _columns(11, 512, 3, True), 11 * 489),
         ("csv path, 2 wells", "data", csv_cols, 2 * 277),
     ]
-    trained = [("lstm", "lstm", False), ("stacked_lstm", "stacked_lstm", False),
-               ("attention", "attention", False)]
+    trained = [("lstm", "lstm", False, root, T),
+               ("stacked_lstm", "stacked_lstm", False, root, T),
+               ("attention", "attention", False, root, T),
+               ("attention", "attention", False, os.path.join(root, "ring"), RING_TRAIN_WINDOW)]
     artifacts = trained + random_artifacts
 
     server = make_server("127.0.0.1", 0)  # device left at its default: cuda
@@ -785,15 +1238,16 @@ def phase_serve(torch, root: str, smi: str) -> dict:
         log(f"[serve] port server on {url} ({server.predictor.device}); card: {smi}")
         for k in KERNELS.values():
             k.launches = 0
-        for name, model_name, grouped in artifacts:
+        for name, model_name, grouped, store, window in artifacts:
             forward_kernel = KERNELS[FORWARD_KERNEL[model_name]]
             layers = LAYERS[model_name]
+            label_name = name if store == root else "ring-trained"
             for label, kind, cols, windows in requests:
                 if not grouped:
                     if kind == "data":  # the CSV's well column is not in its schema
                         continue
-                    windows = len(cols["pressure"]) - T + 1
-                spec = {"storagePath": root, "model": name}
+                    windows = len(cols["pressure"]) - window + 1
+                spec = {"storagePath": store, "model": name}
                 if kind == "data":
                     spec["data"] = csv_path
                 else:
@@ -805,7 +1259,7 @@ def phase_serve(torch, root: str, smi: str) -> dict:
                 launched = forward_kernel.launches - before
                 chunks = -(-windows // BATCH)
                 rows = len(cols["pressure"])
-                log(f"[serve] {name:12s} {label:22s} status={status} "
+                log(f"[serve] {label_name:12s} {label:22s} status={status} "
                     f"windows={body.get('count')} latency_ms={seconds * 1e3:.1f} "
                     f"rows/s={rows / seconds:.0f} windows/s={windows / seconds:.0f} "
                     f"launches={launched} (card: {smi})")
@@ -814,17 +1268,17 @@ def phase_serve(torch, root: str, smi: str) -> dict:
                 if "degraded" in body:
                     raise AssertionError(f"{model_name} {label}: degraded answer")
                 y = np.asarray(body["predictions"], np.float64)
-                if body["count"] != windows or y.shape != (windows, T):
+                if body["count"] != windows or y.shape != (windows, window):
                     raise AssertionError(
                         f"{model_name} {label}: count {body['count']}, shape "
-                        f"{y.shape}; expected {windows} windows of {T} steps")
+                        f"{y.shape}; expected {windows} windows of {window} steps")
                 if not np.isfinite(y).all():
                     raise AssertionError(f"{model_name} {label}: non-finite predictions")
                 if launched != layers * chunks:
                     raise AssertionError(
                         f"{model_name} {label}: {launched} {FORWARD_KERNEL[model_name]} "
                         f"launches, expected layers x chunks = {layers} x {chunks}")
-                answers.append((name, model_name, label, kind, cols, y))
+                answers.append((name, label_name, store, label, kind, cols, y))
         launches = {name: k.launches for name, k in KERNELS.items()}
         metrics = server.predictor.metrics()
     finally:
@@ -838,18 +1292,18 @@ def phase_serve(torch, root: str, smi: str) -> dict:
         raise AssertionError(f"service counted {metrics}")
 
     # The same Predictor's plain path on the card (after the counted run).
-    for name, model_name, label, kind, cols, y in answers:
-        pred = server.predictor.get_predictor(root, name)
+    for name, label_name, store, label, kind, cols, y in answers:
+        pred = server.predictor.get_predictor(store, name)
         atol = PRED_ATOL_NORM * pred._meta["preprocessor"]["target_std"]
         if kind == "data":
             cols = pred.columns_from_csv(csv_path)
         x, _ = pred.prepare_columns(cols)
         plain = pred.forward_prepared(x, plain=True)
         err = float(np.abs(plain - y).max())
-        log(f"[serve] {name:12s} {label:22s} served vs plain path: max abs "
+        log(f"[serve] {label_name:12s} {label:22s} served vs plain path: max abs "
             f"err {err:.3e} (tolerance {atol:.3e} = {PRED_ATOL_NORM} x target_std)")
         if err > atol:
-            raise AssertionError(f"{model_name} {label}: served predictions "
+            raise AssertionError(f"{label_name} {label}: served predictions "
                                  f"disagree with the plain path ({err:.3e})")
     phase_breakdown(torch, server.predictor, root, requests[0][2], random_artifacts, smi)
     return launches
@@ -861,7 +1315,7 @@ def phase_breakdown(torch, service, root, cols, artifacts, smi) -> None:
     device time by kernel and the device's idle share of that window."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name, model_name, _ in artifacts:
+    for name, model_name, *_ in artifacts:
         pred = service.get_predictor(root, name)
         stages = {"prepare_ms": [], "forward_ms": [], "encode_ms": []}
         for _ in range(5):
@@ -910,14 +1364,17 @@ def main() -> int:
     phase_build()
     records = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="tpuflow_torch_smoke_") as root:
-        launches = phase_train(torch, root, smi)
+        launches, mae_256 = phase_train(torch, root, smi)
+        ring_launches = phase_ring(torch, root, smi, mae_256)
         serve_launches = phase_serve(torch, root, smi)
     missed = [k for k in ("lstm_fwd", "flash_fwd") if serve_launches[k] == 0]
     if missed:
         raise AssertionError(f"not launched on the serving path: {missed}")
+    for name in ("ring_round_fwd", "ring_round_bwd"):
+        launches[name] = ring_launches[name]
     missed = [k for k, n in launches.items() if n == 0]
     if missed:
-        raise AssertionError(f"not launched on the training path: {missed}")
+        raise AssertionError(f"not launched on the training paths: {missed}")
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"tpuflow_torch/kernels/csrc/{source}.cu", "replaces": replaces,
@@ -929,6 +1386,8 @@ def main() -> int:
             ("flash_fwd", "flash_fwd", "tpuflow/kernels/attention.py:208"),
             ("flash_dq", "flash_bwd", "tpuflow/kernels/attention.py:255"),
             ("flash_dkv", "flash_bwd", "tpuflow/kernels/attention.py:284"),
+            ("ring_round_fwd", "ring_round", "tpuflow/kernels/attention.py:483"),
+            ("ring_round_bwd", "ring_round", "tpuflow/kernels/attention.py:562"),
         )
     ]
     print(json.dumps({"kernels": kernels}))

@@ -254,8 +254,9 @@ def test_sidecar_kwargs_serve_a_ring_run_as_full():
 
 @pytest.mark.parametrize(
     "kwargs,error,match",
-    [({"backend": "ring"}, NotImplementedError, "ring slice"),
-     ({"dropout_rate": 0.1}, NotImplementedError, "ROADMAP.md Queue 3, dropout"),
+    [({"backend": "ring"}, ValueError, 'backend="ring" needs a mesh'),
+     ({"dropout_rate": 1.5}, ValueError, "dropout_rate must be in"),
+     ({"ring_impl": "pallas"}, ValueError, "unknown ring_impl"),
      ({"backend": "cuda"}, ValueError, "unknown attention backend"),
      ({"readout": "mean"}, ValueError, "readout"),
      ({"dim": 30, "heads": 4}, ValueError, "multiple of heads"),
@@ -273,3 +274,75 @@ def test_window_mismatch_raises_and_lstm_ignores_the_window():
         port(torch.zeros(2, 12, 5))
     assert build_model("lstm", 5, window=None).lstm_0.hidden == 64
     assert build_model("stacked_lstm", 5, window=24).num_layers == 2
+
+
+def test_predictor_serves_a_jax_artifact_trained_with_dropout(tmp_path):
+    """Two epochs of the JAX fit with dropout_rate=0.2 give the params of an
+    artifact; its sidecar keeps the rate. The port's Predictor serves it in
+    eval mode, deterministic, equal to the JAX Predictor within 1e-5 in
+    normalised units."""
+    splits = jax_prepare_windowed(
+        generate_wells(n_wells=2, steps=40, seed=0), window=24, seed=0,
+        teacher_forcing=True,
+    )
+    kwargs = {**SMALL, "backend": "full", "dropout_rate": 0.2}
+    jax_model = jax_build_model("attention", **kwargs)
+    state = create_state(jax_model, jax.random.PRNGKey(3), splits.train.x[:2],
+                         jax_wrap_optimizer(jax_build_optimizer("keras_sgd")))
+    params = jax.device_get(jax_fit(state, splits.train, splits.val, JaxFitConfig(
+        max_epochs=2, batch_size=5, seed=0, verbose=False, jit_epoch=False,
+    )).state.params)
+    meta = {"model": "attention", "model_kwargs": kwargs, "kind": "windowed",
+            "preprocessor": _preprocessor(), "sample_shape": [100, 24, 5]}
+    root, fake = str(tmp_path), "fake://torchparity/attention_dropout"
+    JaxStoreCheckpointer(root, "att").maybe_save(2, params, val_loss=0.5)
+    jax_save_meta(root, "att", "attention", kwargs, "windowed", meta["preprocessor"],
+                  meta["sample_shape"])
+    JaxStoreCheckpointer(fake, "att").maybe_save(2, params, val_loss=0.5)
+    write_json(f"{fake}/meta/att.json", meta)
+
+    cols = wells_to_table(generate_wells(n_wells=2, steps=40, seed=3))
+    cols["well"] = np.repeat(["b", "a"], 40)
+    port = Predictor.load(root, "att", device="cpu")
+    assert port.model.block_0.dropout_rate == 0.2 and not port.model.training
+    y = port.predict_columns(cols)
+    y_j = np.asarray(JaxPredictor.load(fake, "att").predict_columns(cols))
+    np.testing.assert_allclose(y, y_j, atol=ATOL * meta["preprocessor"]["target_std"], rtol=0)
+    np.testing.assert_array_equal(port.predict_columns(cols), y)  # deterministic
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_in_training_mode_drops_and_rescales(rate):
+    """Training-mode dropout drops a share of units within 5 standard
+    deviations of ``rate`` and scales the kept ones by 1 / (1 - rate); the
+    masks come from the given generator, so a seed repeats them."""
+    from tpuflow_torch.models.attention import dropout
+
+    x = torch.rand((64, 24, 64)) + 0.5  # no unit is zero before dropout
+    n = x.numel()
+    y = dropout(x, rate, torch.Generator().manual_seed(0))
+    dropped = (y == 0).float().mean().item()
+    assert abs(dropped - rate) <= 5 * (rate * (1 - rate) / n) ** 0.5
+    kept = y != 0
+    torch.testing.assert_close(y[kept], x[kept] / (1 - rate), rtol=1e-6, atol=0)
+    torch.testing.assert_close(dropout(x, rate, torch.Generator().manual_seed(0)), y,
+                               rtol=0, atol=0)
+
+
+def test_dropout_runs_in_training_and_not_in_eval():
+    """The regressor with dropout: two training-mode forwards differ, with
+    ``dropout_generator`` seeded they repeat, and eval mode is
+    deterministic and equal to the model without dropout on the same
+    params."""
+    model = build_model("attention", 5, window=8, dropout_rate=0.3, **SMALL)
+    same = build_model("attention", 5, window=8, **SMALL)
+    same.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 8, 5)).astype(np.float32))
+    model.dropout_generator = torch.Generator().manual_seed(1)
+    a, b = model(x), model(x)
+    assert not torch.equal(a, b)
+    model.dropout_generator = torch.Generator().manual_seed(1)
+    torch.testing.assert_close(model(x), a, rtol=0, atol=0)
+    model.eval()
+    with torch.no_grad():
+        torch.testing.assert_close(model(x), same.eval()(x), rtol=0, atol=0)

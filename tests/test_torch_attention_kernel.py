@@ -239,7 +239,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, BH, T, D):
         assert _normwise_err(g, w) <= 1e-4
     got_counts = dict(zip(KERNELS, (w.launches - c for w, c in zip(KERNELS.values(), counts))))
     assert got_counts == {"lstm_fwd": 0, "lstm_bwd": 0, "mae_clip": 0,
-                          "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+                          "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                          "ring_round_fwd": 0, "ring_round_bwd": 0}
 
 
 @pytest.mark.cuda

@@ -25,6 +25,9 @@ class Block:
 sys.meta_path.insert(0, Block())
 import tpuflow_torch
 names = [m.name for m in pkgutil.walk_packages(tpuflow_torch.__path__, "tpuflow_torch.")]
+ring = {f"tpuflow_torch.parallel.{m}"
+        for m in ("mesh", "distributed", "collectives", "ring_attention", "sp")}
+assert ring <= set(names), sorted(ring - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke

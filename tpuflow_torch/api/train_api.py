@@ -1,4 +1,4 @@
-"""The train(config) entry point for the LSTM and attention families, on one card.
+"""The train(config) entry point for the LSTM and attention families.
 
 Counterpart of ``tpuflow/api/train_api.py`` for ``lstm``, ``stacked_lstm``
 and ``attention``: ingest (CSV or synthetic wells) under a dynamic schema,
@@ -6,6 +6,13 @@ window and split 64/16/20, normalise with train statistics, build the model,
 train with early stopping and save-best, evaluate on the held-out test split,
 write the serving sidecar, and report elapsed time, test loss, throughput and
 MAE against the Gilbert baseline.
+
+One card by default. With ``model_kwargs={"backend": "ring", "mesh": mesh}``
+the attention regressor splits each window's attention over the mesh's
+ranks, and ``train`` runs on every rank of the mesh's group: each rank
+trains the same replicated model on the same batches, so their losses,
+early stopping and final parameters agree; only the group's rank 0 writes
+the checkpoints and the sidecar, and the ranks meet at a barrier after it.
 
 The model is initialised by the port (flax's initialisers in distribution,
 numbers from ``torch.Generator().manual_seed(seed)``), so a seed does not
@@ -22,6 +29,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuflow_torch import resolve_device
 from tpuflow_torch.api.config import TrainJobConfig
@@ -38,6 +46,7 @@ from tpuflow_torch.data.synthetic import (
 )
 from tpuflow_torch.models import build_model
 from tpuflow_torch.models.registry import MODELS
+from tpuflow_torch.parallel.mesh import DATA_AXIS
 from tpuflow_torch.train.loop import FitConfig, FitResult, evaluate, fit
 from tpuflow_torch.train.optim import build_optimizer, wrap_optimizer
 
@@ -139,8 +148,8 @@ def _epoch_program(config: TrainJobConfig) -> tuple[str, str]:
     if config.jit_epoch:
         return "per_batch", (
             "jit_epoch=True asks for the scanned epoch, which is not ported "
-            "(ROADMAP.md Queue 1 item 12); per-batch steps run the same math, "
-            "since the ported models run without dropout"
+            "(ROADMAP.md Queue 1 item 12); per-batch steps run the same math "
+            "(dropout masks come from the port's own generator either way)"
         )
     if config.jit_epoch is None:
         return "per_batch", "auto: per-batch steps are the port's one epoch program"
@@ -183,11 +192,17 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     the GPU, raising when there is none; ``"cpu"`` runs the kernels' plain
     versions)."""
     _refuse_not_ported(config)
-    dev = resolve_device(device)
+    mesh = config.model_kwargs.get("mesh") if config.model_kwargs.get("backend") == "ring" else None
+    dev = resolve_device(mesh.device if device is None and mesh is not None else device)
     if config.loss not in LOSSES:
         raise ValueError(f"unknown loss {config.loss!r}; known: {sorted(LOSSES)}")
     if config.storage_path:
-        json.dumps(config.model_kwargs)  # the sidecar must serialize them
+        json.dumps(_sidecar_kwargs(config.model_kwargs))  # the sidecar must serialize them
+    if mesh is not None and config.window % mesh.size:
+        raise ValueError(
+            f"sequence length {config.window} not divisible by {DATA_AXIS}={mesh.size}")
+    # On a ring, rank 0 alone writes the artifact.
+    writes = mesh is None or mesh.rank == 0
     t0 = time.monotonic()
     names = config.column_names or SYNTHETIC_COLUMN_NAMES
     types = config.column_types or SYNTHETIC_COLUMN_TYPES
@@ -209,6 +224,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     )
     model.reset_parameters(torch.Generator().manual_seed(config.seed))
     model.to(dev)
+    if hasattr(model, "dropout_generator"):
+        model.dropout_generator = torch.Generator(device=dev).manual_seed(config.seed)
 
     result = fit(
         model,
@@ -220,7 +237,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             patience=config.patience,
             seed=config.seed,
             loss=loss_fn,
-            storage_path=config.storage_path,
+            storage_path=config.storage_path if writes else None,
             model_name=config.model,
             verbose=config.verbose,
         ),
@@ -233,7 +250,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
         eval_bs = max(config.batch_size, 256)
     test = evaluate(result.model, test_ds, batch_size=eval_bs, loss=loss_fn)
 
-    if config.storage_path:
+    if config.storage_path and writes:
         from tpuflow_torch.api.predict_api import save_artifact_meta
 
         pre = {
@@ -254,6 +271,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             _sidecar_kwargs(config.model_kwargs), "windowed", pre,
             tuple(train_ds.x.shape),
         )
+    if mesh is not None:
+        dist.barrier(group=mesh.group)  # the artifact is complete for every rank
 
     report = TrainReport(
         result=result,

@@ -12,6 +12,10 @@ from tpuflow_torch.kernels.attention import (
     flash_attention_dq,
     flash_attention_forward,
     flash_attention_reference,
+    ring_round_bwd,
+    ring_round_bwd_reference,
+    ring_round_fwd,
+    ring_round_fwd_reference,
 )
 from tpuflow_torch.kernels.losses import mae_clip, mae_clip_reference, mae_clip_rows
 from tpuflow_torch.kernels.lstm import (
@@ -28,6 +32,8 @@ KERNELS = {
     "flash_fwd": flash_attention_forward,
     "flash_dq": flash_attention_dq,
     "flash_dkv": flash_attention_dkv,
+    "ring_round_fwd": ring_round_fwd,
+    "ring_round_bwd": ring_round_bwd,
 }
 
 __all__ = [
@@ -46,4 +52,8 @@ __all__ = [
     "mae_clip",
     "mae_clip_reference",
     "mae_clip_rows",
+    "ring_round_bwd",
+    "ring_round_bwd_reference",
+    "ring_round_fwd",
+    "ring_round_fwd_reference",
 ]

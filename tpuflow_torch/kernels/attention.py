@@ -13,11 +13,18 @@ by operations from T of about 150:
 - ``csrc/flash_bwd.cu`` holds ``flash_dq``, which replaces ``_dq_kernel``
   (the same tiling, probabilities recomputed from ``lse``, dq scaled once
   at the end), and ``flash_dkv``, which replaces ``_dkv_kernel`` (one block
-  per (bh, 64-row k tile), q tiles from the diagonal to the end).
+  per (bh, 64-row k tile), q tiles from the diagonal to the end);
+- ``csrc/ring_round.cu`` holds ``ring_round_fwd``, which replaces
+  ``_round_fwd_kernel`` (launched by ``ring_round_fwd``): one causal ring
+  round, the running (m, l, acc) of the local q chunk updated against one
+  visiting K/V block at global offsets; and ``ring_round_bwd``, which
+  replaces ``_round_bwd_kernel``: that round's dq partial and the visiting
+  block's dk, dv, from the final ``lse`` and ``delta``. The context-parallel
+  ring (``tpuflow_torch.parallel.ring_attention``) drives them round by round.
 
 ``delta = rowsum(dO * O)`` in f32 stays a torch op here, as the JAX package
-computes it outside its kernels. Each kernel masks the ragged last tile by T,
-so nothing is padded.
+computes it outside its kernels. Each kernel masks the ragged last tile by T
+(by the chunk length ``Tl`` for the ring rounds), so nothing is padded.
 
 On a CUDA tensor each wrapper launches its kernel (f32, contiguous, head dim
 16, 32, 64 or 128) or raises; on a CPU tensor it runs the plain version,
@@ -51,6 +58,12 @@ def _library(stem: str) -> ctypes.CDLL:
         if stem == "flash_fwd":
             lib.tpuflow_flash_fwd_f32.argtypes = [ptr] * 5 + tail
             lib.tpuflow_flash_fwd_f32.restype = i32
+        elif stem == "ring_round":
+            # BH, Tl, D, q_off, k_off, scale, stream
+            ring_tail = [i32] * 5 + [ctypes.c_float, ptr]
+            for fn in (lib.tpuflow_ring_round_fwd_f32, lib.tpuflow_ring_round_bwd_f32):
+                fn.argtypes = [ptr] * 9 + ring_tail
+                fn.restype = i32
         else:
             lib.tpuflow_flash_dq_f32.argtypes = [ptr] * 7 + tail
             lib.tpuflow_flash_dq_f32.restype = i32
@@ -64,9 +77,10 @@ def _scale(q: torch.Tensor, scale: float | None) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-def _check_qkv(what: str, q, k, v, rows=(), **more) -> tuple[int, int, int]:
+def _check_qkv(what: str, q, k, v, rows=None, **more) -> tuple[int, int, int]:
     """``(BH, T, D)``; raises unless q, k, v and the other ``[BH, T, D]``
-    tensors share one shape and each of ``rows`` is ``[BH, T]``."""
+    tensors share one shape and each of ``rows`` (name: tensor) is
+    ``[BH, T]``."""
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [BH, T, D], got {tuple(q.shape)}")
     for name, t in (("k", k), ("v", v), *more.items()):
@@ -74,7 +88,7 @@ def _check_qkv(what: str, q, k, v, rows=(), **more) -> tuple[int, int, int]:
             raise ValueError(
                 f"{what}: {name} must be {tuple(q.shape)} like q, got {tuple(t.shape)}"
             )
-    for name, t in zip(("lse", "delta"), rows):
+    for name, t in (rows or {}).items():
         if t.shape != q.shape[:2]:
             raise ValueError(
                 f"{what}: {name} must be {tuple(q.shape[:2])}, got {tuple(t.shape)}"
@@ -211,7 +225,7 @@ def flash_attention_reference(
 def flash_dq_reference(q, k, v, do, lse, delta, scale=None, block: int = BLOCK):
     """The plain version of ``flash_dq``: ``dq [BH, T, D]`` from the
     residuals, over q tiles and the k/v tiles up to the diagonal."""
-    _, T, _ = _check_qkv("flash_dq_reference", q, k, v, (lse, delta), do=do)
+    _, T, _ = _check_qkv("flash_dq_reference", q, k, v, {"lse": lse, "delta": delta}, do=do)
     scale = _scale(q, scale)
     dqs = []
     for q0 in range(0, T, block):
@@ -230,7 +244,7 @@ def flash_dq_reference(q, k, v, do, lse, delta, scale=None, block: int = BLOCK):
 def flash_dkv_reference(q, k, v, do, lse, delta, scale=None, block: int = BLOCK):
     """The plain version of ``flash_dkv``: ``(dk, dv)``, each ``[BH, T, D]``,
     over k tiles and the q tiles from the diagonal to the end."""
-    _, T, _ = _check_qkv("flash_dkv_reference", q, k, v, (lse, delta), do=do)
+    _, T, _ = _check_qkv("flash_dkv_reference", q, k, v, {"lse": lse, "delta": delta}, do=do)
     scale = _scale(q, scale)
     dks, dvs = [], []
     for k0 in range(0, T, block):
@@ -266,6 +280,81 @@ def flash_attention_backward_reference(
     return dq, dk, dv
 
 
+def _reaches(q0: int, nq: int, k0: int) -> bool:
+    """Whether a k tile starting at global position ``k0`` reaches any of
+    the ``nq`` queries from global position ``q0`` (the causal edge)."""
+    return k0 <= q0 + nq - 1
+
+
+def ring_round_fwd_reference(
+    q, k_blk, v_blk, m, l, acc, q_off: int, k_off: int, scale: float,
+    block: int = BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of one forward ring round: the new ``(m, l, acc)``
+    (f32) of the local chunk ``q [B, Tl, D]`` at global offset ``q_off``
+    after the visiting ``k_blk, v_blk`` at ``k_off``, over tiles of
+    ``block`` rows; k tiles past each q tile's causal edge are skipped."""
+    B, Tl, D = _check_qkv("ring_round_fwd_reference", q, k_blk, v_blk,
+                          {"m": m, "l": l}, acc=acc)
+    ms, ls, accs = [], [], []
+    for q0 in range(0, Tl, block):
+        qi = q[:, q0 : q0 + block]
+        nq = qi.shape[1]
+        mi, li, ai = m[:, q0 : q0 + nq], l[:, q0 : q0 + nq], acc[:, q0 : q0 + nq]
+        for k0 in range(0, Tl, block):
+            if not _reaches(q_off + q0, nq, k_off + k0):
+                break
+            kj, vj = k_blk[:, k0 : k0 + block], v_blk[:, k0 : k0 + block]
+            allowed = _allowed(q_off + q0, nq, k_off + k0, kj.shape[1], q.device)
+            mi, li, ai = _online_block_update(qi, kj, vj, scale, mi, li, ai, allowed)
+        ms.append(mi)
+        ls.append(li)
+        accs.append(ai)
+    return torch.cat(ms, dim=1), torch.cat(ls, dim=1), torch.cat(accs, dim=1)
+
+
+def ring_round_bwd_reference(
+    q, k_blk, v_blk, do, lse, delta, q_off: int, k_off: int, scale: float,
+    block: int = BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of one backward ring round: this round's dq
+    partial for the local chunk and dk, dv of the visiting block, each
+    ``[B, Tl, D]`` in q's dtype, from the final ``lse`` and ``delta``."""
+    B, Tl, D = _check_qkv("ring_round_bwd_reference", q, k_blk, v_blk,
+                          {"lse": lse, "delta": delta}, do=do)
+    dqs = []
+    for q0 in range(0, Tl, block):
+        qi, doi = q[:, q0 : q0 + block], do[:, q0 : q0 + block]
+        nq = qi.shape[1]
+        lse_i, delta_i = lse[:, q0 : q0 + nq], delta[:, q0 : q0 + nq]
+        acc = torch.zeros(qi.shape, dtype=torch.float32, device=q.device)
+        for k0 in range(0, Tl, block):
+            if not _reaches(q_off + q0, nq, k_off + k0):
+                break
+            kj, vj = k_blk[:, k0 : k0 + block], v_blk[:, k0 : k0 + block]
+            allowed = _allowed(q_off + q0, nq, k_off + k0, kj.shape[1], q.device)
+            acc = acc + _dq_block(qi, kj, vj, doi, scale, lse_i, delta_i, allowed)
+        dqs.append((acc * scale).to(q.dtype))
+    dks, dvs = [], []
+    for k0 in range(0, Tl, block):
+        kj, vj = k_blk[:, k0 : k0 + block], v_blk[:, k0 : k0 + block]
+        nk = kj.shape[1]
+        dk = torch.zeros(kj.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(kj.shape, dtype=torch.float32, device=q.device)
+        for q0 in range(0, Tl, block):
+            qi, doi = q[:, q0 : q0 + block], do[:, q0 : q0 + block]
+            nq = qi.shape[1]
+            if not _reaches(q_off + q0, nq, k_off + k0):
+                continue  # q tiles wholly before this k tile
+            lse_i, delta_i = lse[:, q0 : q0 + nq], delta[:, q0 : q0 + nq]
+            allowed = _allowed(q_off + q0, nq, k_off + k0, nk, q.device)
+            dk_p, dv_p = _dkv_block(qi, kj, vj, doi, scale, lse_i, delta_i, allowed)
+            dk, dv = dk + dk_p, dv + dv_p
+        dks.append(dk.to(q.dtype))
+        dvs.append(dv.to(q.dtype))
+    return torch.cat(dqs, dim=1), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
 # --- the wrappers: the kernel on a CUDA tensor, the plain version on a CPU one
 
 
@@ -298,7 +387,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale=None) -> torch.Tensor:
     CUDA tensors go through ``flash_dq`` in ``csrc/flash_bwd.cu`` and count
     one launch in ``flash_attention_dq.launches``; CPU tensors go through
     ``flash_dq_reference``."""
-    BH, T, D = _check_qkv("flash_attention_dq", q, k, v, (lse, delta), do=do)
+    BH, T, D = _check_qkv("flash_attention_dq", q, k, v, {"lse": lse, "delta": delta}, do=do)
     scale = _scale(q, scale)
     if _runs_plain(q):
         return flash_dq_reference(q, k, v, do, lse, delta, scale)
@@ -321,7 +410,7 @@ def flash_attention_dkv(
     CUDA tensors go through ``flash_dkv`` in ``csrc/flash_bwd.cu`` and count
     one launch in ``flash_attention_dkv.launches``; CPU tensors go through
     ``flash_dkv_reference``."""
-    BH, T, D = _check_qkv("flash_attention_dkv", q, k, v, (lse, delta), do=do)
+    BH, T, D = _check_qkv("flash_attention_dkv", q, k, v, {"lse": lse, "delta": delta}, do=do)
     scale = _scale(q, scale)
     if _runs_plain(q):
         return flash_dkv_reference(q, k, v, do, lse, delta, scale)
@@ -341,16 +430,66 @@ def flash_attention_backward(
     """``(dq, dk, dv)`` of causal attention for the upstream ``do``, from the
     forward's residuals ``o`` and ``lse``: ``delta`` here, then
     ``flash_attention_dq`` and ``flash_attention_dkv``."""
-    _check_qkv("flash_attention_backward", q, k, v, (lse,), o=o, do=do)
+    _check_qkv("flash_attention_backward", q, k, v, {"lse": lse}, o=o, do=do)
     delta = _delta(o, do)
     dq = flash_attention_dq(q, k, v, do, lse, delta, scale)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, scale)
     return dq, dk, dv
 
 
+def ring_round_fwd(q, k_blk, v_blk, m, l, acc, q_off: int, k_off: int, scale: float):
+    """One causal ring round (``tpuflow/kernels/attention.py::ring_round_fwd``):
+    the running ``m, l [B, Tl]`` and ``acc [B, Tl, D]`` (f32) of the local
+    queries ``q [B, Tl, D]`` at global offset ``q_off``, updated with the
+    visiting ``k_blk, v_blk [B, Tl, D]`` at ``k_off``. Returns new tensors,
+    as the JAX kernel does.
+
+    CUDA tensors go through ``ring_round_fwd`` in ``csrc/ring_round.cu`` and
+    count one launch in ``ring_round_fwd.launches``, every round, a wholly
+    future block too; CPU tensors go through ``ring_round_fwd_reference``."""
+    B, Tl, D = _check_qkv("ring_round_fwd", q, k_blk, v_blk, {"m": m, "l": l}, acc=acc)
+    if _runs_plain(q):
+        return ring_round_fwd_reference(q, k_blk, v_blk, m, l, acc, q_off, k_off, scale)
+    _check_card("ring_round_fwd", q, q=q, k=k_blk, v=v_blk, m=m, l=l, acc=acc)
+    m2, l2, acc2 = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
+    if B and Tl:
+        _launch("ring_round", "tpuflow_ring_round_fwd_f32",
+                f"ring_round_fwd launch (B={B}, Tl={Tl}, D={D}, q_off={q_off}, k_off={k_off})",
+                q, k_blk, v_blk, m, l, acc, m2, l2, acc2, B, Tl, D, int(q_off),
+                int(k_off), float(scale))
+        _count(ring_round_fwd)
+    return m2, l2, acc2
+
+
+def ring_round_bwd(q, k_blk, v_blk, do, lse, delta, q_off: int, k_off: int, scale: float):
+    """One backward ring round (``tpuflow/kernels/attention.py::ring_round_bwd``):
+    ``(dq, dk, dv)``, each ``[B, Tl, D]`` in q's dtype, the local chunk's dq
+    partial and the visiting block's dk, dv, from the final ``lse`` and
+    ``delta [B, Tl]`` (f32).
+
+    CUDA tensors go through ``ring_round_bwd`` in ``csrc/ring_round.cu`` and
+    count one launch in ``ring_round_bwd.launches``; CPU tensors go through
+    ``ring_round_bwd_reference``."""
+    B, Tl, D = _check_qkv("ring_round_bwd", q, k_blk, v_blk,
+                          {"lse": lse, "delta": delta}, do=do)
+    if _runs_plain(q):
+        return ring_round_bwd_reference(q, k_blk, v_blk, do, lse, delta, q_off, k_off, scale)
+    _check_card("ring_round_bwd", q, q=q, k=k_blk, v=v_blk, do=do, lse=lse, delta=delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    if B and Tl:
+        _launch("ring_round", "tpuflow_ring_round_bwd_f32",
+                f"ring_round_bwd launch (B={B}, Tl={Tl}, D={D}, q_off={q_off}, k_off={k_off})",
+                q, k_blk, v_blk, do, lse, delta, dq, dk, dv, B, Tl, D, int(q_off),
+                int(k_off), float(scale))
+        _count(ring_round_bwd)
+    return dq, dk, dv
+
+
 flash_attention_forward.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+ring_round_fwd.launches = 0
+ring_round_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

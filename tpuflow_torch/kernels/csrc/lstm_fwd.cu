@@ -27,8 +27,14 @@
 //   Where W_h does not fit (H > 116: 256 KB at H = 128), a second
 //   instantiation reads it from device memory through the read-only path
 //   (__ldg); at H = 256 it is 1 MB, which stays in the 50 MB L2 across the
-//   steps. It takes every H that is a multiple of 4 up to 256, the most
-//   threads a block has here (one per hidden unit);
+//   steps. That layout takes every H that is a multiple of 4 up to 256
+//   (one thread per hidden unit, h read as float4, so a row of h must be a
+//   whole number of float4);
+// - every other H from 1 to 1024 (not a multiple of 4, or above 256) runs a
+//   third layout, lstm_fwd_f32_any_kernel: U = ceil(H / 256) units a
+//   thread, in strides of the block's width ceil(H / U), h read one float
+//   at a time, and c in shared memory (a thread holds U of them a row);
+//   W_h in shared memory where it fits (H <= 116), else through L2;
 // - h of the tile lives in shared memory, double buffered (read one buffer,
 //   write the other), so one __syncthreads() per step suffices;
 // - xw_t is read from global memory each step (coalesced along j), so there
@@ -62,10 +68,27 @@ __device__ __forceinline__ float load_w(const float* p) {
   }
 }
 
+constexpr int kMaxHidden = 1024;
+
+// The float4 layout (one thread per hidden unit, h read as float4) takes H
+// a multiple of 4 up to 256; every other H runs lstm_fwd_f32_any_kernel.
+bool vec_path(int H) { return H % 4 == 0 && H <= kThreadsPerBlock; }
+
+// Block shape of both layouts: U = ceil(H / 256) hidden units a thread,
+// ceil(H / U) threads a block row, 256 / that many rows of threads (at
+// least one). For the float4 layout that is (H, 256 / H).
+dim3 block_for(int H) {
+  const int units = (H + kThreadsPerBlock - 1) / kThreadsPerBlock;
+  const int bx = (H + units - 1) / units;
+  const int by = kThreadsPerBlock / bx;
+  return dim3((unsigned)bx, (unsigned)(by > 0 ? by : 1));
+}
+
 size_t smem_bytes_for(int H, bool shared_w) {
-  const size_t tile_rows = (size_t)(kThreadsPerBlock / H) * kRowsPerThread;
-  return sizeof(float) *
-         ((shared_w ? (size_t)H * 4 * H : 0) + 2 * tile_rows * H);
+  const size_t tile_rows = (size_t)block_for(H).y * kRowsPerThread;
+  // h double buffered, and for the any-H layout c.
+  const size_t tiles = (vec_path(H) ? 2 : 3) * tile_rows * H;
+  return sizeof(float) * ((shared_w ? (size_t)H * 4 * H : 0) + tiles);
 }
 
 template <bool kSharedW>
@@ -172,31 +195,123 @@ __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
   }
 }
 
+// Every H the float4 layout does not take, 1 <= H <= kMaxHidden: thread x of
+// a block row owns hidden units x, x + blockDim.x, ... of kRowsPerThread
+// rows, reads h one float at a time and keeps c in shared memory. Same math,
+// in the same order, as lstm_fwd_f32_kernel.
+template <bool kSharedW>
+__global__ void lstm_fwd_f32_any_kernel(const float* __restrict__ xw,
+                                        const float* __restrict__ wh,
+                                        const float* __restrict__ bias,
+                                        float* __restrict__ hs,
+                                        float* __restrict__ cs,
+                                        int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = kRowsPerThread;
+  const int H4 = 4 * H;
+  const int tile_rows = R * blockDim.y;
+  float* w_s = smem;                            // [H, 4H] when kSharedW
+  float* h_s = smem + (kSharedW ? H * H4 : 0);  // [2, tile_rows, H]
+  float* c_s = h_s + 2 * tile_rows * H;         // [tile_rows, H]
+  const float* w_src = kSharedW ? w_s : wh;
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  if (kSharedW)
+    for (int i = tid; i < H * H4; i += nthreads) w_s[i] = wh[i];
+  for (int i = tid; i < 3 * tile_rows * H; i += nthreads) h_s[i] = 0.0f;
+
+  const int r0 = threadIdx.y * R;  // this thread's first row in the tile
+  const int64_t row0 = (int64_t)blockIdx.x * tile_rows + r0;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const float* h_in = h_s + (t & 1) * tile_rows * H;
+    float* h_out = h_s + ((t + 1) & 1) * tile_rows * H;
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      // h @ W_h for the four gate columns of unit j.
+      float ai[R], af[R], ag[R], ao[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
+      for (int k = 0; k < H; ++k) {
+        const float* w = w_src + (int64_t)k * H4;
+        const float wi = load_w<kSharedW>(w + j);
+        const float wf = load_w<kSharedW>(w + H + j);
+        const float wg = load_w<kSharedW>(w + 2 * H + j);
+        const float wo = load_w<kSharedW>(w + 3 * H + j);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float hk = h_in[(r0 + r) * H + k];
+          ai[r] = fmaf(hk, wi, ai[r]);
+          af[r] = fmaf(hk, wf, af[r]);
+          ag[r] = fmaf(hk, wg, ag[r]);
+          ao[r] = fmaf(hk, wo, ao[r]);
+        }
+      }
+      const float bi = bias[j];
+      const float bf = bias[H + j];
+      const float bg = bias[2 * H + j];
+      const float bo = bias[3 * H + j];
+      // Gate math, in the reference's order: (xw + h @ W_h) + b.
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int64_t row = row0 + r;
+        float xi = 0.0f, xf = 0.0f, xg = 0.0f, xo = 0.0f;
+        if (row < B) {
+          const float* x = xw + ((int64_t)t * B + row) * H4;
+          xi = x[j];
+          xf = x[H + j];
+          xg = x[2 * H + j];
+          xo = x[3 * H + j];
+        }
+        const float zi = (xi + ai[r]) + bi;
+        const float zf = (xf + af[r]) + bf;
+        const float zg = (xg + ag[r]) + bg;
+        const float zo = (xo + ao[r]) + bo;
+        float* c = c_s + (r0 + r) * H + j;
+        const float cn = sigmoid_f32(zf) * *c + sigmoid_f32(zi) * tanhf(zg);
+        const float hn = sigmoid_f32(zo) * tanhf(cn);
+        *c = cn;
+        h_out[(r0 + r) * H + j] = hn;
+        if (row < B) {
+          const int64_t o = ((int64_t)t * B + row) * H + j;
+          hs[o] = hn;
+          if (cs != nullptr) cs[o] = cn;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest hidden size the kernel takes (any multiple of 4 up to it).
-int tpuflow_lstm_fwd_max_hidden(void) { return kThreadsPerBlock; }
+// Largest hidden size the kernels take (every H from 1 up to it).
+int tpuflow_lstm_fwd_max_hidden(void) { return kMaxHidden; }
 
-// Launch shape for hidden size H: blockDim (H, y) with y = 256 / H, and
-// kRowsPerThread * y rows a block; W_h in shared memory where it fits, else
-// read through L2. Returns 0, or the CUDA error code.
+// Launch shape for hidden size H: block_for(H), kRowsPerThread rows per row
+// of threads; the float4 layout where it applies, else the any-H one; W_h in
+// shared memory where it fits, else read through L2. Returns 0, or the CUDA
+// error code.
 int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b,
                          float* hs, float* cs, int T, int B, int H,
                          void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (H <= 0 || H % 4 != 0 || H > kThreadsPerBlock)
-    return (int)cudaErrorInvalidValue;
-  const int ty = kThreadsPerBlock / H;
-  const int tile_rows = ty * kRowsPerThread;
+  if (H <= 0 || H > kMaxHidden) return (int)cudaErrorInvalidValue;
+  const dim3 block = block_for(H);
+  const int tile_rows = (int)block.y * kRowsPerThread;
   const bool shared_w = smem_bytes_for(H, true) <= kMaxSharedBytes;
   const size_t smem = smem_bytes_for(H, shared_w);
-  auto kernel = shared_w ? lstm_fwd_f32_kernel<true> : lstm_fwd_f32_kernel<false>;
+  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = vec_path(H)
+                    ? (shared_w ? lstm_fwd_f32_kernel<true> : lstm_fwd_f32_kernel<false>)
+                    : (shared_w ? lstm_fwd_f32_any_kernel<true>
+                                : lstm_fwd_f32_any_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(H, ty);
   const dim3 grid((unsigned)((B + tile_rows - 1) / tile_rows));
   kernel<<<grid, block, smem, (cudaStream_t)stream>>>(xw, wh, b, hs, cs, T, B,
                                                       H);

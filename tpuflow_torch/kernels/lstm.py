@@ -21,10 +21,13 @@ Kernels:
   writes ``dxw`` and one ``dW_h``/``db`` partial per block, which
   ``lstm_scan_backward`` sums over the block axis in a fixed order. Above
   H = 76 it reads ``W_h`` through L2 and keeps the partial in the global
-  buffer.
+  buffer. A block walks several batch tiles, so the partials stay within
+  about 256 MB (at least 132 of them).
 
-Both take every hidden size that is a multiple of 4 up to 256 (one thread
-per hidden unit); beyond that the wrappers raise, naming the limit.
+Both take every hidden size from 1 to 1024. A multiple of 4 up to 256 runs
+one thread per hidden unit with ``h`` read as float4; every other size runs
+a layout with several units a thread and ``h`` read one float at a time.
+Beyond 1024 the wrappers raise, naming the limit.
 
 ``lstm_scan`` is differentiable: when gradients are needed it runs as a
 ``torch.autograd.Function`` whose forward keeps the cell states and whose
@@ -114,12 +117,12 @@ def _library(stem: str) -> ctypes.CDLL:
 
 def _refuse_hidden(stem: str, H: int) -> None:
     """Raise, naming the limit, when kernel ``stem`` does not take hidden
-    size H (a multiple of 4 up to the most threads a block gives it)."""
+    size H (1 up to the most its shared-memory tiles hold)."""
     limit = getattr(_library(stem), f"tpuflow_{stem}_max_hidden")()
-    if H <= 0 or H % 4 or H > limit:
+    if H <= 0 or H > limit:
         raise ValueError(
-            f"{stem} takes a hidden size that is a multiple of 4 up to "
-            f"{limit} (one thread per hidden unit in a block); got H={H}"
+            f"{stem} takes hidden sizes from 1 to {limit} (its per-block "
+            f"tiles of h, dz and the carries fill shared memory); got H={H}"
         )
 
 

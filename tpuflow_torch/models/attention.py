@@ -5,9 +5,14 @@ names and layouts (``embed``, ``pos_embed [T, dim]``, ``block_i/{qkv, proj,
 LayerNorm_0, LayerNorm_1, Dense_0, Dense_1}``, ``LayerNorm_0``, ``head``;
 Dense ``kernel [in, out]``, LayerNorm ``scale``/``bias``), so a checkpoint
 maps one to one between the two packages. Each block's attention runs
-through ``flash_attention``: the kernels on a GPU, their plain versions on
-the CPU. Numerics follow flax: LayerNorm with epsilon 1e-6 and the variance
-as E[x^2] - E[x]^2, GELU in its tanh form.
+through ``flash_attention`` (backends ``full`` and ``flash``: the kernels on
+a GPU, their plain versions on the CPU) or, with ``backend="ring"`` and a
+``mesh``, through ``ring_attention`` over the mesh's ranks (the ring-round
+kernels on a GPU). Numerics follow flax: LayerNorm with epsilon 1e-6 and
+the variance as E[x^2] - E[x]^2, GELU in its tanh form, and dropout (after
+the attention projection and after the MLP) only in training mode, with
+masks drawn from ``dropout_generator`` (torch's default generator when it
+is None); in eval mode, as in serving, the model is deterministic.
 """
 
 from __future__ import annotations
@@ -18,11 +23,13 @@ from torch import nn
 
 from tpuflow_torch.kernels.attention import flash_attention, flash_attention_reference
 from tpuflow_torch.models.lstm import READOUTS, Dense
+from tpuflow_torch.parallel.ring_attention import IMPLS as RING_IMPLS
+from tpuflow_torch.parallel.ring_attention import ring_attention
 
 # "full" and "flash" run the same math (the LSTM family's xla/pallas
-# pattern): on a GPU both go through the flash kernels.
-BACKENDS = ("full", "flash")
-RING_IMPLS = ("jnp", "flash")
+# pattern): on a GPU both go through the flash kernels. "ring" splits the
+# time axis over a mesh's ranks.
+BACKENDS = ("full", "flash", "ring")
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -62,33 +69,48 @@ class LayerNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
 
 
-def _check_options(backend: str, dropout_rate: float, ring_impl: str) -> None:
-    if backend == "ring":
-        raise NotImplementedError(
-            'backend="ring" (ring attention over a mesh) is not ported yet to '
-            "tpuflow_torch: it comes with the ring slice (parallel/ring_attention.py "
-            "ring and parallel/sp.py over torch.distributed; ROADMAP.md Queue 1 item 3)"
-        )
+def _check_options(backend: str, dropout_rate: float, ring_impl: str, mesh) -> None:
     if backend not in BACKENDS:
-        raise ValueError(f"unknown attention backend {backend!r}; known {BACKENDS + ('ring',)}")
+        raise ValueError(f"unknown attention backend {backend!r}; known {BACKENDS}")
+    if backend == "ring" and mesh is None:
+        raise ValueError('backend="ring" needs a mesh')
     if ring_impl not in RING_IMPLS:
         raise ValueError(f"unknown ring_impl {ring_impl!r}; known {RING_IMPLS}")
-    if dropout_rate > 0:
-        raise NotImplementedError(
-            f"dropout_rate={dropout_rate} is not ported yet to tpuflow_torch: the two "
-            "frameworks draw different random bits (ROADMAP.md Queue 3, dropout)"
-        )
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training mode: each unit kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the others
+    zeroed; the keep mask is drawn from ``generator``."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN block: causal multi-head attention and an MLP, each with a
     residual connection."""
 
-    def __init__(self, dim: int, heads: int = 4, mlp_ratio: int = 4):
+    def __init__(
+        self,
+        dim: int,
+        heads: int = 4,
+        mlp_ratio: int = 4,
+        dropout_rate: float = 0.0,
+        backend: str = "full",
+        mesh=None,
+        ring_impl: str = "jnp",
+    ):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim={dim} is not a multiple of heads={heads}")
+        _check_options(backend, dropout_rate, ring_impl, mesh)
         self.heads = heads
+        self.dropout_rate = dropout_rate
+        self.backend, self.mesh, self.ring_impl = backend, mesh, ring_impl
         self.LayerNorm_0 = LayerNorm(dim)
         self.qkv = Dense(dim, 3 * dim)
         self.proj = Dense(dim, dim)
@@ -100,23 +122,29 @@ class EncoderBlock(nn.Module):
         for module in self.children():
             module.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         q, k, v = self.qkv(self.LayerNorm_0(x)).chunk(3, dim=-1)
         q, k, v = (_split_heads(t, self.heads).contiguous() for t in (q, k, v))
         if plain:
             att = flash_attention_reference(q, k, v)[0]
+        elif self.backend == "ring":
+            att = ring_attention(self.mesh, q, k, v, causal=True, impl=self.ring_impl)
         else:
             att = flash_attention(q, k, v)
-        x = x + self.proj(_merge_heads(att, self.heads))
+        rate = self.dropout_rate if self.training else 0.0
+        x = x + dropout(self.proj(_merge_heads(att, self.heads)), rate, generator)
         h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.Dense_1(h)
+        return x + dropout(self.Dense_1(h), rate, generator)
 
 
 class AttentionRegressor(nn.Module):
     """Causal transformer flow regressor: ``[B, T, F] -> [B, T]`` (or
     ``[B]`` with ``readout="last"``). ``window`` is T, the length of the
     learned position embedding. Defaults are flax's: dim 64, 2 layers, 4
-    heads, sequence readout.
+    heads, sequence readout. ``backend="ring"`` needs ``mesh`` (a
+    ``tpuflow_torch.parallel.Mesh``), whose ring size must divide the window;
+    every rank of the mesh runs the model on the same batch.
     """
 
     def __init__(
@@ -129,18 +157,22 @@ class AttentionRegressor(nn.Module):
         readout: str = "sequence",
         dropout_rate: float = 0.0,
         backend: str = "full",
+        mesh=None,
         ring_impl: str = "jnp",
     ):
         super().__init__()
         if readout not in READOUTS:
             raise ValueError(f"unknown readout {readout!r}; known {READOUTS}")
-        _check_options(backend, dropout_rate, ring_impl)
+        _check_options(backend, dropout_rate, ring_impl, mesh)
         self.readout = readout
         self.num_layers = num_layers
+        self.dropout_generator: torch.Generator | None = None
         self.embed = Dense(in_features, dim)
         self.pos_embed = nn.Parameter(torch.empty(window, dim))
         for i in range(num_layers):
-            self.add_module(f"block_{i}", EncoderBlock(dim, heads=heads))
+            self.add_module(f"block_{i}", EncoderBlock(
+                dim, heads=heads, dropout_rate=dropout_rate, backend=backend,
+                mesh=mesh, ring_impl=ring_impl))
         self.LayerNorm_0 = LayerNorm(dim)
         self.head = Dense(dim, 1)
         self.reset_parameters()
@@ -165,6 +197,6 @@ class AttentionRegressor(nn.Module):
             )
         h = self.embed(x) + self.pos_embed[None]
         for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h, plain=plain)
+            h = getattr(self, f"block_{i}")(h, plain=plain, generator=self.dropout_generator)
         y = self.head(self.LayerNorm_0(h))[..., 0]  # [B, T]
         return y[:, -1] if self.readout == "last" else y

@@ -35,7 +35,7 @@ MODELS: dict[str, Callable[..., nn.Module]] = {
     "stacked_lstm": lambda in_features, window, **kw: LSTMRegressor(
         in_features, **{"hidden": 64, "num_layers": 2, **kw}
     ),
-    # Long-context family: causal transformer (its ring path is not ported)
+    # Long-context family: causal transformer (backend="ring" takes a mesh)
     "attention": _attention,
 }
 

@@ -25,6 +25,7 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, loss_fn: LossF
     updates ``model``'s parameters in place."""
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
+        model.train()  # dropout on
         optimizer.zero_grad()
         loss = loss_fn(y, model(x).to(torch.float32))
         loss.backward()
@@ -40,6 +41,7 @@ def make_eval_step(model: torch.nn.Module, loss_fn: LossFn):
 
     @torch.no_grad()
     def step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> dict:
+        model.eval()  # deterministic: dropout off
         pred = model(x).to(torch.float32)
         per_loss = per_example(loss_fn, y, pred)  # [B]: per-example mean loss
         per_mae = torch.abs(y - pred).reshape(y.shape[0], -1).mean(dim=1)
