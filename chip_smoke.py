@@ -15,10 +15,12 @@ Phases, in order; any failure exits non-zero before the result line:
    the shapes the training and serving paths give it (``lstm_fwd``,
    ``lstm_bwd``, ``mae_clip``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
    ``ring_round_fwd``, ``ring_round_bwd``; the LSTM kernels also at hidden
-   sizes 128, 256, 50, 300 and 512; the ring rounds at five shapes, each
-   with a diagonal, a past and a future block), with CUDA-event timings of
-   the kernel, the plain version and, where one exists, a library call as a
-   yardstick.
+   sizes 128, 256, 50, 300, 512 and 2048; the ring rounds at five shapes,
+   each with a diagonal, a past and a future block), with CUDA-event
+   timings of the kernel, the plain version and, where one exists, a
+   library call as a yardstick. ``lstm_bwd`` is three kernels (gates,
+   chain, weight gradients): each is held against its own plain piece, and
+   timed by CUDA events and by profiled device time.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -52,6 +54,10 @@ before it the kernels' JSON record (launches from the counted train runs;
 for the ring-round kernels, rank 0's in the ring training),
 and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``tpuflow``.
+
+``python3 chip_smoke.py --lstm-steps ROOT`` runs only a profiled window of
+20 LSTM-64 train steps of the port in the tree at ROOT, for comparing two
+trees on one card (run it once per tree, in turns, in one session).
 """
 
 from __future__ import annotations
@@ -88,6 +94,10 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-5
 # (24 dependent steps, each summing 4H products in another order); dW_h and
 # db 1e-4 (sums over B*T products, per block and then over the blocks).
 BWD_TOL = {"dxw": 1e-5, "dwh": 1e-4, "db": 1e-4}
+# Each of lstm_bwd's kernels vs its plain piece on the same inputs,
+# normwise: the gates 1e-5 (H-term sums in another order), dz 1e-5 (as
+# dxw), dW_h and db 1e-4 (sums over B*T products by chunks, then over them).
+BWD_PIECE_TOL = {"gates": 1e-5, "dz": 1e-5, "dwh": 1e-4, "db": 1e-4}
 # mae_clip vs plain: per-row f32 sums in another order, up to 98,304
 # elements a row; relative 1e-5.
 MAE_RTOL = 1e-5
@@ -323,15 +333,8 @@ def kernel_lstm_fwd(torch) -> dict:
                 )
         kernel_ms = cuda_ms(torch, lambda: lstm_scan(xw, wh, b))
         plain_ms = cuda_ms(torch, lambda: lstm_scan_reference(xw, wh, b), runs=20)
-        # Yardstick only, never called by the port: cuDNN's LSTM on the same
-        # xw with an identity input projection and W_hh = W_h^T computes the
-        # same function (projection plus recurrence).
-        lib = torch.nn.LSTM(4 * H, H).to(dev)
+        lib = cudnn_lstm(torch, wh, b)
         with torch.no_grad():
-            lib.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-            lib.weight_hh_l0.copy_(wh.t())
-            lib.bias_ih_l0.copy_(b)
-            lib.bias_hh_l0.zero_()
             lib_err = (lib(xw)[0] - ref_hs).abs().max().item()
             library_ms = cuda_ms(torch, lambda: lib(xw))
         bound_ms, bound_by = lstm_bound(T, B, H)
@@ -345,21 +348,132 @@ def kernel_lstm_fwd(torch) -> dict:
     return record
 
 
-def kernel_lstm_bwd(torch) -> dict:
-    """lstm_bwd against lstm_scan_backward_reference at T=24, H=64, B in
-    {20 (the training batch), 37 (ragged), 4096}; returns the record of the
-    training shape, B=20."""
+def profiled_ms(torch, fn, runs: int = 10) -> dict:
+    """Device milliseconds a call by kernel: ``fn`` run ``runs`` times
+    (after one warm call) inside one ``torch.profiler`` window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {k: v / runs for k, v in device_ms_by_kernel(prof).items()}
+
+
+def cudnn_lstm(torch, wh, b):
+    """Yardstick only, never called by the port: cuDNN's ``nn.LSTM`` with
+    an identity input projection, W_hh = W_h^T and the bias computes
+    lstm_scan's function on the same xw (projection plus recurrence)."""
+    Hn = wh.shape[0]
+    lib = torch.nn.LSTM(4 * Hn, Hn).to(wh.device)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(4 * Hn, device=wh.device))
+        lib.weight_hh_l0.copy_(wh.t())
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    return lib
+
+
+def cudnn_backward_ms(torch, xw, wh, b, dhs, want) -> tuple[float, float]:
+    """Milliseconds of cuDNN's LSTM backward (dxw, dW_h, db on a saved
+    forward; it also forms the input-weight gradient) and its normwise error
+    against the plain backward ``want``."""
+    lib = cudnn_lstm(torch, wh, b)
+    inp = xw.clone().requires_grad_()
+    out = lib(inp)[0]
+    wrt = [inp, lib.weight_hh_l0, lib.bias_ih_l0]
+    grads = torch.autograd.grad(out, wrt, dhs, retain_graph=True)
+    err = max(normwise_err(grads[0], want[0]), normwise_err(grads[1].t(), want[1]),
+              normwise_err(grads[2], want[2]))
+    ms = cuda_ms(torch, lambda: torch.autograd.grad(out, wrt, dhs, retain_graph=True),
+                 runs=10)
+    return ms, err
+
+
+def check_lstm_bwd(torch, xw, wh, b, hs, cs, dhs, where: str, runs: int = 25) -> dict:
+    """lstm_bwd at one shape: each of its three kernels against its plain
+    piece on the same inputs (the chain on the plain gates, the weight
+    gradients on the plain dz), the whole backward against
+    lstm_scan_backward_reference; then its time by CUDA events and by
+    profiled device time (split by kernel), the plain version's and
+    cuDNN's. Raises on a disagreement."""
     from tpuflow_torch.kernels.lstm import (
+        lstm_bwd_chain,
+        lstm_bwd_chain_reference,
+        lstm_bwd_gates,
+        lstm_bwd_gates_reference,
+        lstm_bwd_wgrad,
+        lstm_bwd_wgrad_reference,
         lstm_scan_backward,
         lstm_scan_backward_reference,
-        lstm_scan_reference,
     )
+
+    gates = lstm_bwd_gates(xw, wh, b, hs)
+    want_gates = lstm_bwd_gates_reference(xw, wh, b, hs)
+    dz = lstm_bwd_chain(wh, cs, dhs, want_gates.clone())
+    want_dz = lstm_bwd_chain_reference(wh, cs, dhs, want_gates)
+    wgrad = lstm_bwd_wgrad(hs, want_dz)
+    want_wgrad = lstm_bwd_wgrad_reference(hs, want_dz)
+    got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+    torch.cuda.synchronize()
+    want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    pieces = {"gates": normwise_err(gates, want_gates), "dz": normwise_err(dz, want_dz),
+              "dwh": normwise_err(wgrad[0], want_wgrad[0]),
+              "db": normwise_err(wgrad[1], want_wgrad[1])}
+    errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
+    bad = {k: e for k, e in pieces.items() if not e <= BWD_PIECE_TOL[k]}
+    bad.update({k: e for k, e in errs.items() if not e <= BWD_TOL[k]})
+    if bad:
+        raise AssertionError(f"lstm_bwd disagrees with its plain version at {where}: {bad}")
+    max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+    few = max(3, runs // 5)
+    scratch = want_gates.clone()
+    ms = cuda_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs), runs=runs)
+    piece_ms = {
+        "gates": cuda_ms(torch, lambda: lstm_bwd_gates(xw, wh, b, hs), runs=runs),
+        "chain": cuda_ms(torch, lambda: lstm_bwd_chain(wh, cs, dhs, scratch), runs=runs),
+        "wgrad": cuda_ms(torch, lambda: lstm_bwd_wgrad(hs, want_dz), runs=runs),
+    }
+    by_kernel = profiled_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs),
+                            runs=few)
+    device = {name: sum(v for k, v in by_kernel.items() if f"lstm_bwd_{name}" in k)
+              for name in ("gates", "chain", "wgrad")}
+    device_total = sum(by_kernel.values())  # the three kernels and the partials' sums
+    plain_ms = cuda_ms(
+        torch, lambda: lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs), runs=few)
+    library_ms, lib_err = cudnn_backward_ms(torch, xw, wh, b, dhs, want)
+    Tn, B, Hn = hs.shape
+    bound_ms, bound_by = lstm_bwd_bound(Tn, B, Hn)
+    log(f"[kernel] lstm_bwd {where}: pieces normwise_err="
+        + ",".join(f"{k}:{v:.3e}" for k, v in pieces.items())
+        + "; whole normwise_err=" + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
+        + f" max_abs_err={max_abs:.3e}; kernel_ms={ms:.4f} (CUDA events; pieces "
+        + ", ".join(f"{k}={v:.4f}" for k, v in piece_ms.items())
+        + f") device_ms={device_total:.4f} (profiled; "
+        + ", ".join(f"{k}={v:.4f}" for k, v in device.items())
+        + f") plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (cuDNN nn.LSTM "
+        f"backward; normwise err vs plain {lib_err:.3e}) plain/kernel="
+        f"{plain_ms / ms:.2f} library/kernel={library_ms / ms:.2f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "max_abs_err": max_abs}
+
+
+def kernel_lstm_bwd(torch) -> dict:
+    """lstm_bwd's three kernels against their plain pieces, and the whole
+    against lstm_scan_backward_reference, at T=24, H=64, B in {20 (the
+    training batch), 37 (ragged), 4096}; returns the record of the training
+    shape, B=20."""
+    from tpuflow_torch.kernels.lstm import lstm_scan_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     log(f"[kernel] lstm_bwd vs lstm_scan_backward_reference: f32, T={T}, "
         f"H={H}; normwise tolerance {BWD_TOL} (dxw: 24 dependent steps of "
-        "4H-term sums in another order; dW_h, db: sums over B*T products)")
+        "4H-term sums in another order; dW_h, db: sums over B*T products); its "
+        f"kernels vs their plain pieces {BWD_PIECE_TOL}")
     record, worst = None, 0.0
     for B in (TRAIN_BATCH, 37, 4096):
         xw = torch.randn((T, B, 4 * H), generator=gen, device=dev)
@@ -367,69 +481,26 @@ def kernel_lstm_bwd(torch) -> dict:
         b = torch.randn(4 * H, generator=gen, device=dev) * 0.1
         dhs = torch.randn((T, B, H), generator=gen, device=dev)
         hs, cs = lstm_scan_reference(xw, wh, b)
-        got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
-        torch.cuda.synchronize()
-        want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
-        errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
-        max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
-        worst = max(worst, max_abs)
-        for k, err in errs.items():
-            if err > BWD_TOL[k]:
-                raise AssertionError(
-                    f"lstm_bwd disagrees with its plain version at B={B} on "
-                    f"{k}: normwise err {err:.3e} > {BWD_TOL[k]}")
-        kernel_ms = cuda_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs))
-        plain_ms = cuda_ms(
-            torch, lambda: lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs), runs=20)
-        # Yardstick only, never called by the port: the backward through
-        # cuDNN's LSTM on the same xw, identity input projection and
-        # W_hh = W_h^T (it also forms the input-weight gradient).
-        lib = torch.nn.LSTM(4 * H, H).to(dev)
-        with torch.no_grad():
-            lib.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-            lib.weight_hh_l0.copy_(wh.t())
-            lib.bias_ih_l0.copy_(b)
-            lib.bias_hh_l0.zero_()
-        inp = xw.clone().requires_grad_()
-        out = lib(inp)[0]
-        wrt = [inp, lib.weight_hh_l0, lib.bias_ih_l0]
-        lib_grads = torch.autograd.grad(out, wrt, dhs, retain_graph=True)
-        lib_err = max(normwise_err(lib_grads[0], want[0]),
-                      normwise_err(lib_grads[1].t(), want[1]),
-                      normwise_err(lib_grads[2], want[2]))
-        library_ms = cuda_ms(
-            torch, lambda: torch.autograd.grad(out, wrt, dhs, retain_graph=True))
-        bound_ms, bound_by = lstm_bwd_bound(T, B, H)
-        log(f"[kernel] lstm_bwd B={B:5d}: normwise_err="
-            + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
-            + f" max_abs_err={max_abs:.3e} kernel_ms={kernel_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (cuDNN "
-            f"nn.LSTM backward; normwise err vs plain {lib_err:.3e}) "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+        got = check_lstm_bwd(torch, xw, wh, b, hs, cs, dhs, f"H={H} B={B:5d}")
+        worst = max(worst, got["max_abs_err"])
         if B == TRAIN_BATCH:
-            record = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
+            record = got
     record["max_abs_err"] = worst
     return record
 
 
 def kernel_lstm_wide(torch) -> None:
-    """lstm_fwd and lstm_bwd at hidden sizes past the shared-memory layouts
-    (H = 128 and 256, B = 20 and 4096): W_h read through L2, and the
-    backward's partial kept in the global buffer; and at H = 50, 300 and
-    512, which run the layout with several units a thread and h read one
-    float at a time. Same tolerances as at H = 64; times are logged, the
+    """lstm_fwd and lstm_bwd at hidden sizes past LSTM-64 (B = 20 and 4096):
+    H = 128 and 256 (W_h read through L2), 50, 300 and 512 (the forward's
+    layout with several units a thread) and 2048 (beyond the old 1024 cap).
+    Same tolerances as at H = 64, each backward kernel against its plain
+    piece; times are logged, with cuDNN's LSTM as the yardstick, and the
     JSON records stay those of H = 64."""
-    from tpuflow_torch.kernels.lstm import (
-        lstm_scan,
-        lstm_scan_backward,
-        lstm_scan_backward_reference,
-        lstm_scan_reference,
-    )
+    from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    for Hn in (128, 256, 50, 300, 512):
+    for Hn in (128, 256, 50, 300, 512, 2048):
         for B in (TRAIN_BATCH, 4096):
             xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
             wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
@@ -437,7 +508,6 @@ def kernel_lstm_wide(torch) -> None:
             dhs = torch.randn((T, B, Hn), generator=gen, device=dev)
             cs = torch.empty((T, B, Hn), device=dev)
             hs = lstm_scan(xw, wh, b, cs_out=cs)
-            got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
             torch.cuda.synchronize()
             ref_hs, ref_cs = lstm_scan_reference(xw, wh, b)
             fwd_err = max((hs - ref_hs).abs().max().item(), (cs - ref_cs).abs().max().item())
@@ -446,25 +516,18 @@ def kernel_lstm_wide(torch) -> None:
                 raise AssertionError(
                     f"lstm_fwd disagrees with its plain version at H={Hn}, B={B}: "
                     f"max abs err {fwd_err:.3e}")
-            want = lstm_scan_backward_reference(xw, wh, b, ref_hs, ref_cs, dhs)
-            errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
-            bad = {k: e for k, e in errs.items() if not e <= BWD_TOL[k]}
-            if bad:
-                raise AssertionError(
-                    f"lstm_bwd disagrees with its plain version at H={Hn}, B={B}: {bad}")
+            big = Hn * B >= 512 * 4096
             fwd_ms = cuda_ms(torch, lambda: lstm_scan(xw, wh, b), runs=10)
             fwd_plain = cuda_ms(torch, lambda: lstm_scan_reference(xw, wh, b), runs=5)
-            bwd_ms = cuda_ms(
-                torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs), runs=10)
-            bwd_plain = cuda_ms(
-                torch, lambda: lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs), runs=5)
             fb, fby = lstm_bound(T, B, Hn)
-            bb, bby = lstm_bwd_bound(T, B, Hn)
+            lib = cudnn_lstm(torch, wh, b)
+            with torch.no_grad():
+                lib_fwd = cuda_ms(torch, lambda: lib(xw), runs=10)
             log(f"[kernel] lstm wide H={Hn} B={B:5d}: lstm_fwd max_abs_err={fwd_err:.3e} "
-                f"kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}); "
-                "lstm_bwd normwise_err="
-                + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
-                + f" kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby})")
+                f"kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain:.4f} library_ms={lib_fwd:.4f} "
+                f"(cuDNN nn.LSTM forward) bound_ms={fb:.4f} ({fby})")
+            check_lstm_bwd(torch, xw, wh, b, ref_hs, ref_cs, dhs, f"H={Hn} B={B:5d}",
+                           runs=5 if big else 10)
 
 
 def kernel_flash(torch) -> dict:
@@ -847,17 +910,88 @@ def steady_steps(torch, model_name, model, x, y, smi) -> None:
         run(20)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = device_ms_by_kernel(prof)
+    log_profiled_steps(model_name, device_ms_by_kernel(prof), wall_ms)
+
+
+# The port's kernels as the profiler names them; the backward of the LSTM
+# is its three kernels.
+OUR_KERNELS = ("lstm_fwd_f32", "lstm_bwd_gates", "lstm_bwd_chain", "lstm_bwd_wgrad",
+               "flash_", "clipped_abs_partial", "row_sum_kernel")
+LSTM_BWD_KERNELS = ("lstm_bwd_gates", "lstm_bwd_chain", "lstm_bwd_wgrad")
+
+
+def log_profiled_steps(model_name, by_kernel: dict, wall_ms: float) -> None:
+    """One profiled window of 20 train steps: device busy and idle share,
+    the eight largest kernels and the port's own wherever they rank, and
+    the LSTM backward's device time (its three kernels summed)."""
     busy_ms = sum(by_kernel.values())
     idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured"
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
-    # The eight largest, and the port's own kernels wherever they rank.
-    ours = ("lstm_fwd_f32", "lstm_bwd_f32", "flash_", "clipped_abs_partial", "row_sum_kernel")
-    top = ranked[:8] + [kv for kv in ranked[8:] if any(m in kv[0] for m in ours)]
+    top = ranked[:8] + [kv for kv in ranked[8:] if any(m in kv[0] for m in OUR_KERNELS)]
+    bwd = {m: sum(v for k, v in by_kernel.items() if m in k) for m in LSTM_BWD_KERNELS}
+    # Every kernel named lstm_bwd: also the single kernel of earlier trees.
+    bwd_ms = sum(v for k, v in by_kernel.items() if "lstm_bwd" in k)
     log(f"[train] {model_name:12s} profiled 20 steps: wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={idle} kernels={len(by_kernel)}; "
-        "by kernel (ms over 20 steps): "
+        f"lstm_bwd device_ms={bwd_ms:.4f} ("
+        + ", ".join(f"{k}={v:.4f}" for k, v in bwd.items())
+        + "); by kernel (ms over 20 steps): "
         + "; ".join(f"{k[:60]}={v:.4f}" for k, v in top))
+
+
+def lstm_steps(root: str) -> int:
+    """``--lstm-steps ROOT``: profiled LSTM-64 train steps of the port in the
+    tree at ROOT (this checkout, or another tree unpacked beside it), so
+    that two trees can be compared in one run on one card: build ROOT's
+    kernels, then 10 warm steps and one profiled window of 20 steps at
+    batch 20 (keras_sgd, mae_clip) on seeded wells and weights."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    import tpuflow_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.data.pipeline import prepare_windowed
+    from tpuflow_torch.data.synthetic import generate_wells
+    from tpuflow_torch.kernels import _build
+    from tpuflow_torch.models import build_model
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    log(f"[steps] tree {os.path.dirname(os.path.abspath(tpuflow_torch.__file__))}; "
+        f"card: {nvidia_smi()}")
+    splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
+                              window=T, seed=0, teacher_forcing=True)
+    x = torch.from_numpy(splits.train.x).cuda()
+    y = torch.from_numpy(splits.train.y).cuda()
+    model = build_model("lstm", len(FEATURES), window=T)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda()
+    step = make_train_step(model, keras_sgd().bind(model.parameters()), mae_clip)
+    n_batches = len(x) // TRAIN_BATCH
+
+    def run(k):
+        for i in range(k):
+            s = (i % n_batches) * TRAIN_BATCH
+            step(x[s : s + TRAIN_BATCH], y[s : s + TRAIN_BATCH])
+
+    run(10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(20)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_profiled_steps("lstm", device_ms_by_kernel(prof), wall_ms)
+    return 0
 
 
 def _ring_batch() -> tuple[np.ndarray, np.ndarray]:
@@ -1400,4 +1534,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lstm-steps"]:
+        sys.exit(lstm_steps(sys.argv[2]))
     sys.exit(main())

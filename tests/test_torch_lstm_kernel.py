@@ -116,8 +116,9 @@ def test_backward_reference_matches_autograd_through_the_reference():
 def test_card_path_output_carries_a_grad_fn(monkeypatch):
     """The CUDA branch of ``lstm_scan`` returns a differentiable ``hs``: the
     forward launcher gets a cell-state buffer, and ``backward()`` reaches
-    ``W_h`` and ``b`` through the backward launcher, whose per-block
-    partials are summed. The launchers are replaced by fakes that fill
+    ``W_h`` and ``b`` through the backward launcher, whose S
+    weight-gradient partials are summed. The launchers are replaced by
+    fakes (and the library's hidden-size limit skipped) that fill
     their outputs with the plain versions' results, so this runs without a
     card; the kernels themselves are held to those versions by the
     ``cuda`` tests below."""
@@ -141,7 +142,8 @@ def test_card_path_output_carries_a_grad_fn(monkeypatch):
     monkeypatch.setattr(lstm_mod, "_runs_plain", lambda t: False)
     monkeypatch.setattr(lstm_mod, "_fwd_kernel", fake_fwd)
     monkeypatch.setattr(lstm_mod, "_bwd_kernel", fake_bwd)
-    monkeypatch.setattr(lstm_mod, "_bwd_blocks", lambda B, H: 3)
+    monkeypatch.setattr(lstm_mod, "_refuse_hidden", lambda stem, H: None)
+    monkeypatch.setattr(lstm_mod, "_wgrad_splits", lambda T, B, H: 3)
     xw, wh, b = (torch.from_numpy(a).requires_grad_() for a in _case(5, 3, 8, seed=7))
     fwd0, bwd0 = lstm_scan.launches, lstm_scan_backward.launches
     hs = lstm_scan(xw, wh, b)
@@ -204,9 +206,13 @@ def test_cuda_autograd_runs_both_kernels(cuda_device):
     (ref_hs * ref_hs).sum().backward()
     for got, want in zip((xw, wh, b), ref):
         assert _normwise_err(got.grad, want.grad) <= 1e-4
-    with pytest.raises(ValueError, match="from 1 to 1024"):
+    from tpuflow_torch.kernels import lstm as lstm_mod
+
+    limit = lstm_mod._library("lstm_fwd").tpuflow_lstm_fwd_max_hidden()
+    assert limit >= 4096
+    with pytest.raises(ValueError, match=f"from 1 to {limit} "):
         lstm_scan(*(torch.from_numpy(a).to(cuda_device).requires_grad_()
-                    for a in _case(2, 3, 1025)))
+                    for a in _case(2, 3, limit + 1)))
 
 
 @pytest.mark.cuda

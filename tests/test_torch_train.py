@@ -183,6 +183,19 @@ def test_fields_not_ported_yet_raise(field, value):
         train(config, device="cpu")
 
 
+def test_n_devices_none_refuses_several_cards(monkeypatch):
+    """JAX reads ``n_devices=None`` as every visible device (data parallel
+    when there are several); the port raises on a host with more than one
+    card rather than train on one of them, and the CPU path is unchanged."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    config = TrainJobConfig(model="lstm", max_epochs=1, **SMALL)
+    assert config.n_devices is None
+    with pytest.raises(NotImplementedError, match=r"n_devices=None.*Queue 1 item 8"):
+        train(config)
+    report = train(config, device="cpu")
+    assert np.isfinite(report.test_loss)
+
+
 def test_health_off_and_jit_epoch_are_accepted(tmp_path):
     report = train(TrainJobConfig(model="lstm", max_epochs=1, health="off",
                                   jit_epoch=True, **SMALL), device="cpu")

@@ -87,6 +87,22 @@ def _refuse_not_ported(config: TrainJobConfig) -> None:
         )
 
 
+def _refuse_every_card(config: TrainJobConfig, mesh, device) -> None:
+    """``n_devices=None`` means every visible device, as in the JAX package
+    (data parallel over them when there are several). One card trains as
+    one device; more than one would need data parallel, which is not
+    ported, so raise rather than train on one of them. A ring's mesh names
+    its own devices."""
+    on_card = device is None or torch.device(device).type == "cuda"
+    if config.n_devices is None and mesh is None and on_card and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"TrainJobConfig.n_devices=None means every visible card "
+            f"({torch.cuda.device_count()}), and data parallel is not ported yet "
+            f"to tpuflow_torch (ROADMAP.md Queue 1 item 8 (data parallel)); "
+            f"pass n_devices=1"
+        )
+
+
 @dataclass
 class TrainReport:
     result: FitResult
@@ -193,6 +209,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     versions)."""
     _refuse_not_ported(config)
     mesh = config.model_kwargs.get("mesh") if config.model_kwargs.get("backend") == "ring" else None
+    _refuse_every_card(config, mesh, device)
     dev = resolve_device(mesh.device if device is None and mesh is not None else device)
     if config.loss not in LOSSES:
         raise ValueError(f"unknown loss {config.loss!r}; known: {sorted(LOSSES)}")

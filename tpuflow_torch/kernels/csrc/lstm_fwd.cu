@@ -30,11 +30,15 @@
 //   steps. That layout takes every H that is a multiple of 4 up to 256
 //   (one thread per hidden unit, h read as float4, so a row of h must be a
 //   whole number of float4);
-// - every other H from 1 to 1024 (not a multiple of 4, or above 256) runs a
-//   third layout, lstm_fwd_f32_any_kernel: U = ceil(H / 256) units a
-//   thread, in strides of the block's width ceil(H / U), h read one float
-//   at a time, and c in shared memory (a thread holds U of them a row);
-//   W_h in shared memory where it fits (H <= 116), else through L2;
+// - every other H (not a multiple of 4, or above 256) runs a third layout,
+//   lstm_fwd_f32_any_kernel: U = ceil(H / 256) units a thread, in strides
+//   of the block's width ceil(H / U), h read one float at a time, and c in
+//   shared memory (a thread holds U of them a row); W_h in shared memory
+//   where it fits (H <= 116), else through L2. Its tiles take 3 * rows * H
+//   floats: at 8 rows a thread (every H up to 2421) 96 * H bytes; where
+//   that does not fit, an instantiation with 4 rows a thread (48 * H
+//   bytes) takes H up to 4842. The limit is computed from those tiles and
+//   the shared memory a block may use (tpuflow_lstm_fwd_max_hidden);
 // - h of the tile lives in shared memory, double buffered (read one buffer,
 //   write the other), so one __syncthreads() per step suffices;
 // - xw_t is read from global memory each step (coalesced along j), so there
@@ -68,8 +72,6 @@ __device__ __forceinline__ float load_w(const float* p) {
   }
 }
 
-constexpr int kMaxHidden = 1024;
-
 // The float4 layout (one thread per hidden unit, h read as float4) takes H
 // a multiple of 4 up to 256; every other H runs lstm_fwd_f32_any_kernel.
 bool vec_path(int H) { return H % 4 == 0 && H <= kThreadsPerBlock; }
@@ -84,8 +86,11 @@ dim3 block_for(int H) {
   return dim3((unsigned)bx, (unsigned)(by > 0 ? by : 1));
 }
 
-size_t smem_bytes_for(int H, bool shared_w) {
-  const size_t tile_rows = (size_t)block_for(H).y * kRowsPerThread;
+// Rows a thread of the any-H layout: 4 where 8 would overflow shared memory.
+constexpr int kFewRowsPerThread = 4;
+
+size_t smem_bytes_for(int H, bool shared_w, int rows_per_thread) {
+  const size_t tile_rows = (size_t)block_for(H).y * rows_per_thread;
   // h double buffered, and for the any-H layout c.
   const size_t tiles = (vec_path(H) ? 2 : 3) * tile_rows * H;
   return sizeof(float) * ((shared_w ? (size_t)H * 4 * H : 0) + tiles);
@@ -195,11 +200,10 @@ __global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
   }
 }
 
-// Every H the float4 layout does not take, 1 <= H <= kMaxHidden: thread x of
-// a block row owns hidden units x, x + blockDim.x, ... of kRowsPerThread
-// rows, reads h one float at a time and keeps c in shared memory. Same math,
+// Every H the float4 layout does not take, up to max_hidden(): thread x of
+// a block row owns hidden units x, x + blockDim.x, ... of R rows, reads h one float at a time and keeps c in shared memory. Same math,
 // in the same order, as lstm_fwd_f32_kernel.
-template <bool kSharedW>
+template <bool kSharedW, int R>
 __global__ void lstm_fwd_f32_any_kernel(const float* __restrict__ xw,
                                         const float* __restrict__ wh,
                                         const float* __restrict__ bias,
@@ -207,7 +211,6 @@ __global__ void lstm_fwd_f32_any_kernel(const float* __restrict__ xw,
                                         float* __restrict__ cs,
                                         int T, int B, int H) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int R = kRowsPerThread;
   const int H4 = 4 * H;
   const int tile_rows = R * blockDim.y;
   float* w_s = smem;                            // [H, 4H] when kSharedW
@@ -284,31 +287,55 @@ __global__ void lstm_fwd_f32_any_kernel(const float* __restrict__ xw,
   }
 }
 
+// Rows a thread for hidden size H: kRowsPerThread where the tiles fit with
+// it (always on the float4 layout, and so for every H <= 1024), else
+// kFewRowsPerThread.
+int rows_per_thread_for(int H) {
+  return smem_bytes_for(H, false, kRowsPerThread) <= kMaxSharedBytes
+             ? kRowsPerThread
+             : kFewRowsPerThread;
+}
+
+size_t smem_bytes_for(int H, bool shared_w) {
+  return smem_bytes_for(H, shared_w, rows_per_thread_for(H));
+}
+
+// The largest H whose tiles fit at kFewRowsPerThread rows a thread (above
+// 256 the block is one row of threads, so they take 3 * 4 * H floats).
+int max_hidden() {
+  int h = (int)(kMaxSharedBytes / (sizeof(float) * 3 * kFewRowsPerThread));
+  while (h > 0 && smem_bytes_for(h, false, kFewRowsPerThread) > kMaxSharedBytes) --h;
+  return h;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Largest hidden size the kernels take (every H from 1 up to it).
-int tpuflow_lstm_fwd_max_hidden(void) { return kMaxHidden; }
+int tpuflow_lstm_fwd_max_hidden(void) { return max_hidden(); }
 
-// Launch shape for hidden size H: block_for(H), kRowsPerThread rows per row
-// of threads; the float4 layout where it applies, else the any-H one; W_h in
-// shared memory where it fits, else read through L2. Returns 0, or the CUDA
-// error code.
+// Launch shape for hidden size H: block_for(H), rows_per_thread_for(H) rows
+// per row of threads; the float4 layout where it applies, else the any-H
+// one; W_h in shared memory where it fits, else read through L2. Returns 0,
+// or the CUDA error code.
 int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b,
                          float* hs, float* cs, int T, int B, int H,
                          void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (H <= 0 || H > kMaxHidden) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || H > max_hidden()) return (int)cudaErrorInvalidValue;
   const dim3 block = block_for(H);
-  const int tile_rows = (int)block.y * kRowsPerThread;
+  const int rows = rows_per_thread_for(H);
+  const int tile_rows = (int)block.y * rows;
   const bool shared_w = smem_bytes_for(H, true) <= kMaxSharedBytes;
   const size_t smem = smem_bytes_for(H, shared_w);
   if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   auto kernel = vec_path(H)
                     ? (shared_w ? lstm_fwd_f32_kernel<true> : lstm_fwd_f32_kernel<false>)
-                    : (shared_w ? lstm_fwd_f32_any_kernel<true>
-                                : lstm_fwd_f32_any_kernel<false>);
+                : rows == kRowsPerThread
+                    ? (shared_w ? lstm_fwd_f32_any_kernel<true, kRowsPerThread>
+                                : lstm_fwd_f32_any_kernel<false, kRowsPerThread>)
+                    : lstm_fwd_f32_any_kernel<false, kFewRowsPerThread>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -14,20 +14,25 @@ Kernels:
   steps (read through L2 instead where it does not fit, H > 116), ``h`` in
   shared memory, ``c`` in registers, and gives each thread the four gate
   columns of one hidden unit so the gate math needs no exchange between
-  threads.
-- ``csrc/lstm_bwd.cu`` replaces ``_bwd_kernel`` (launched by ``_bwd``): the
-  reverse-time recurrence with the gates recomputed from ``(xw, h_{t-1})``.
-  Three ``H x 4H`` products per row and step bound it by operations; it
-  writes ``dxw`` and one ``dW_h``/``db`` partial per block, which
-  ``lstm_scan_backward`` sums over the block axis in a fixed order. Above
-  H = 76 it reads ``W_h`` through L2 and keeps the partial in the global
-  buffer. A block walks several batch tiles, so the partials stay within
-  about 256 MB (at least 132 of them).
+  threads. A multiple of 4 up to 256 runs one thread per hidden unit with
+  ``h`` read as float4; every other size runs a layout with several units a
+  thread and ``h`` read one float at a time.
+- ``csrc/lstm_bwd.cu`` replaces ``_bwd_kernel`` (launched by ``_bwd``) with
+  three kernels, launched one after the other by ``_bwd_kernel`` here:
+  ``lstm_bwd_gates`` recomputes the gates of all ``T*B`` rows at once (a
+  tiled GEMM ``[T*B, H] x [H, 4H]`` with the activations in its epilogue)
+  into the ``dxw`` buffer; ``lstm_bwd_chain`` walks the steps backwards
+  with ``dz @ W_h^T`` as the only product on its serial chain and
+  overwrites the gates with ``dz``; ``lstm_bwd_wgrad`` forms ``dW_h =
+  Hprev^T dz`` and ``db`` after the loop, as ``S`` partials over chunks of
+  the rows that ``lstm_scan_backward`` sums in a fixed order. Each has its
+  plain version (``lstm_bwd_gates_reference``, ``lstm_bwd_chain_reference``,
+  ``lstm_bwd_wgrad_reference``); composed they are
+  ``lstm_scan_backward_reference``.
 
-Both take every hidden size from 1 to 1024. A multiple of 4 up to 256 runs
-one thread per hidden unit with ``h`` read as float4; every other size runs
-a layout with several units a thread and ``h`` read one float at a time.
-Beyond 1024 the wrappers raise, naming the limit.
+The kernels compute the largest hidden size their shared-memory tiles take
+(``tpuflow_lstm_{fwd,bwd}_max_hidden``: 4842 forward, 9685 backward); the
+wrappers raise beyond it, naming the limit.
 
 ``lstm_scan`` is differentiable: when gradients are needed it runs as a
 ``torch.autograd.Function`` whose forward keeps the cell states and whose
@@ -83,7 +88,7 @@ def _check_card(what: str, ref: torch.Tensor, **tensors) -> None:
         if t is None:
             continue
         if t.device != ref.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, xw on {ref.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, not {ref.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: the CUDA kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous():
@@ -102,15 +107,18 @@ def _library(stem: str) -> ctypes.CDLL:
         if stem == "lstm_fwd":
             fn = lib.tpuflow_lstm_fwd_f32
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         else:
-            fn = lib.tpuflow_lstm_bwd_f32
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            lib.tpuflow_lstm_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.tpuflow_lstm_bwd_blocks.restype = ctypes.c_int
+            for name, n_ptrs, n_ints in (("gates", 5, 3), ("chain", 4, 3), ("wgrad", 4, 4)):
+                fn = getattr(lib, f"tpuflow_lstm_bwd_{name}")
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.tpuflow_lstm_bwd_splits.argtypes = [ctypes.c_int] * 3
+            lib.tpuflow_lstm_bwd_splits.restype = ctypes.c_int
         max_hidden = getattr(lib, f"tpuflow_{stem}_max_hidden")
         max_hidden.argtypes = []
         max_hidden.restype = ctypes.c_int
-        fn.restype = ctypes.c_int
         _libs[stem] = lib
     return lib
 
@@ -121,16 +129,16 @@ def _refuse_hidden(stem: str, H: int) -> None:
     limit = getattr(_library(stem), f"tpuflow_{stem}_max_hidden")()
     if H <= 0 or H > limit:
         raise ValueError(
-            f"{stem} takes hidden sizes from 1 to {limit} (its per-block "
-            f"tiles of h, dz and the carries fill shared memory); got H={H}"
+            f"{stem} takes hidden sizes from 1 to {limit} (the most its "
+            f"per-block tiles fit in shared memory); got H={H}"
         )
 
 
-def _bwd_blocks(B: int, H: int) -> int:
-    """Blocks (partials) of the backward kernel for batch B; raises when the
-    kernel does not take hidden size H."""
+def _wgrad_splits(T: int, B: int, H: int) -> int:
+    """S, the partials of ``lstm_bwd_wgrad`` (chunks of its ``T*B`` rows);
+    raises when the backward does not take hidden size H."""
     _refuse_hidden("lstm_bwd", H)
-    return _library("lstm_bwd").tpuflow_lstm_bwd_blocks(B, H)
+    return _library("lstm_bwd").tpuflow_lstm_bwd_splits(T, B, H)
 
 
 def _fwd_kernel(xw, wh, b, hs, cs) -> None:
@@ -148,19 +156,39 @@ def _fwd_kernel(xw, wh, b, hs, cs) -> None:
     _build.check(lib, code, f"lstm_fwd launch (T={T}, B={B}, H={H})")
 
 
-def _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts) -> None:
-    """Launch ``csrc/lstm_bwd.cu`` on the current stream into ``dxw`` and the
-    per-block partials."""
-    T, B, H = hs.shape
+def _launch_bwd(name: str, ref: torch.Tensor, *args) -> None:
+    """Call ``tpuflow_lstm_bwd_<name>`` with ``args`` (tensors as pointers,
+    then ints) and the current stream; raise on its CUDA error code."""
     lib = _library("lstm_bwd")
-    with torch.cuda.device(xw.device):
-        code = lib.tpuflow_lstm_bwd_f32(
-            xw.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), dhs.data_ptr(), dxw.data_ptr(),
-            dwh_parts.data_ptr(), db_parts.data_ptr(),
-            T, B, H, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, code, f"lstm_bwd launch (T={T}, B={B}, H={H})")
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(ref.device):
+        code = getattr(lib, f"tpuflow_lstm_bwd_{name}")(
+            *ptrs, torch.cuda.current_stream().cuda_stream)
+    shape = ", ".join(f"{k}={v}" for k, v in zip("TBH", args[-3:]))
+    _build.check(lib, code, f"lstm_bwd_{name} launch ({shape})")
+
+
+def _gates_kernel(xw, wh, b, hs, gates) -> None:
+    _launch_bwd("gates", xw, xw, wh, b, hs, gates, *hs.shape)
+
+
+def _chain_kernel(wh, cs, dhs, dxw) -> None:
+    if wh.data_ptr() % 16:
+        raise ValueError("lstm_bwd_chain reads W_h as float4: it must be 16-byte aligned")
+    _launch_bwd("chain", cs, wh, cs, dhs, dxw, *cs.shape)
+
+
+def _wgrad_kernel(hs, dz, dwh_parts, db_parts) -> None:
+    _launch_bwd("wgrad", hs, hs, dz, dwh_parts, db_parts, dwh_parts.shape[0], *hs.shape)
+
+
+def _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts) -> None:
+    """Launch the three kernels of ``csrc/lstm_bwd.cu`` on the current
+    stream: the gates into ``dxw``, the chain over them (``dxw`` then holds
+    ``dz``), and the ``S = len(dwh_parts)`` weight-gradient partials."""
+    _gates_kernel(xw, wh, b, hs, dxw)
+    _chain_kernel(wh, cs, dhs, dxw)
+    _wgrad_kernel(hs, dxw, dwh_parts, db_parts)
 
 
 def lstm_scan_reference(
@@ -238,6 +266,115 @@ def lstm_scan_backward_reference(
     return dxw, dwh.to(wh.dtype), db.to(b.dtype)
 
 
+def _hprev(hs: torch.Tensor) -> torch.Tensor:
+    """``hs`` shifted one step later in f32: row t is ``hs[t-1]``, zero at t = 0."""
+    hprev = torch.zeros(hs.shape, dtype=torch.float32, device=hs.device)
+    hprev[1:] = hs[:-1]
+    return hprev
+
+
+def lstm_bwd_gates_reference(xw, wh, b, hs) -> torch.Tensor:
+    """Plain version of ``lstm_bwd_gates``: the activations ``[sigmoid(z_i),
+    sigmoid(z_f), tanh(z_g), sigmoid(z_o)]`` of ``z = xw + Hprev @ W_h + b``
+    for every step at once, ``[T, B, 4H]`` in ``xw``'s dtype."""
+    H = _check_shapes(xw, wh, b, None)[2]
+    f32 = torch.float32
+    z = xw.to(f32) + _hprev(hs) @ wh.to(f32) + b.to(f32)
+    zi, zf, zg, zo = z.split(H, dim=-1)
+    return torch.cat(
+        [torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg), torch.sigmoid(zo)], dim=-1
+    ).to(xw.dtype)
+
+
+def lstm_bwd_chain_reference(wh, cs, dhs, gates) -> torch.Tensor:
+    """Plain version of ``lstm_bwd_chain``: ``dz [T, B, 4H]`` from the
+    recomputed ``gates``, by the reverse-time loop of
+    ``lstm_scan_backward_reference`` with the gates taken as given."""
+    T, B, H = cs.shape
+    f32 = torch.float32
+    wh32 = wh.to(f32)
+    zeros = torch.zeros((B, H), dtype=f32, device=cs.device)
+    dh_carry, dc_carry = zeros, zeros
+    dz_all = torch.empty_like(gates)
+    for t in reversed(range(T)):
+        c_prev = cs[t - 1].to(f32) if t > 0 else zeros
+        i, f, g, o = gates[t].to(f32).split(H, dim=-1)
+        tanh_c = torch.tanh(cs[t].to(f32))
+        dh = dhs[t].to(f32) + dh_carry
+        do = dh * tanh_c
+        dc = dc_carry + dh * o * (1.0 - tanh_c * tanh_c)
+        di, df, dg = dc * g, dc * c_prev, dc * i
+        dz = torch.cat(
+            [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+             do * o * (1.0 - o)],
+            dim=-1,
+        )
+        dz_all[t] = dz.to(gates.dtype)
+        dh_carry = dz @ wh32.T
+        dc_carry = dc * f
+    return dz_all
+
+
+def lstm_bwd_wgrad_reference(hs, dz) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``lstm_bwd_wgrad``: ``dW_h = Hprev^T dz`` over all
+    ``T*B`` rows and ``db``, the column sums of ``dz``; both f32."""
+    H = hs.shape[-1]
+    dz32 = dz.to(torch.float32).reshape(-1, 4 * H)
+    return _hprev(hs).reshape(-1, H).T @ dz32, dz32.sum(dim=0)
+
+
+def _on_card(what: str, **tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for CUDA tensors
+    that pass the kernel's checks."""
+    ref = next(iter(tensors.values()))
+    if _runs_plain(ref):
+        return False
+    _check_card(what, ref, **tensors)
+    return True
+
+
+def lstm_bwd_gates(xw, wh, b, hs) -> torch.Tensor:
+    """``lstm_bwd_gates`` (CUDA) or its plain version (CPU): the recomputed
+    gate activations ``[T, B, 4H]``. Not counted: ``lstm_scan_backward``
+    counts the backward as a whole."""
+    T, B, H = _check_shapes(xw, wh, b, hs)
+    if not _on_card("lstm_bwd_gates", xw=xw, wh=wh, b=b, hs=hs):
+        return lstm_bwd_gates_reference(xw, wh, b, hs)
+    _refuse_hidden("lstm_bwd", H)
+    gates = torch.empty_like(xw)
+    if T and B:
+        _gates_kernel(xw, wh, b, hs, gates)
+    return gates
+
+
+def lstm_bwd_chain(wh, cs, dhs, gates) -> torch.Tensor:
+    """``lstm_bwd_chain`` (CUDA) or its plain version (CPU): overwrites
+    ``gates`` with ``dz`` and returns it."""
+    T, B, H = cs.shape
+    if not _on_card("lstm_bwd_chain", gates=gates, wh=wh, cs=cs, dhs=dhs):
+        return gates.copy_(lstm_bwd_chain_reference(wh, cs, dhs, gates))
+    _refuse_hidden("lstm_bwd", H)
+    if T and B:
+        _chain_kernel(wh, cs, dhs, gates)
+    return gates
+
+
+def lstm_bwd_wgrad(hs, dz) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_bwd_wgrad`` (CUDA, its ``S`` partials summed in order) or its
+    plain version (CPU): ``(dW_h [H, 4H], db [4H])``."""
+    T, B, H = hs.shape
+    if not _on_card("lstm_bwd_wgrad", dz=dz, hs=hs):
+        return lstm_bwd_wgrad_reference(hs, dz)
+    if not (T and B):
+        return (torch.zeros((H, 4 * H), device=dz.device),
+                torch.zeros(4 * H, device=dz.device))
+    S = _wgrad_splits(T, B, H)
+    dwh_parts = torch.empty((S, H, 4 * H), dtype=torch.float32, device=dz.device)
+    db_parts = torch.empty((S, 4 * H), dtype=torch.float32, device=dz.device)
+    _wgrad_kernel(hs, dz, dwh_parts, db_parts)
+    return dwh_parts.sum(dim=0), db_parts.sum(dim=0)
+
+
 def _forward(xw, wh, b, cs_out):
     """``(hs, cs)``: the kernel on a CUDA tensor (``cs`` is ``cs_out``, which
     it fills when given), the plain version on a CPU tensor."""
@@ -264,7 +401,7 @@ class _LSTMScan(torch.autograd.Function):
     def forward(ctx, xw, wh, b, cs_out):
         T, B, H = xw.shape[0], xw.shape[1], wh.shape[0]
         if not _runs_plain(xw):
-            _bwd_blocks(max(B, 1), H)  # refuse before the forward runs
+            _refuse_hidden("lstm_bwd", H)  # refuse before the forward runs
             if cs_out is None:
                 cs_out = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
         hs, cs = _forward(xw, wh, b, cs_out)
@@ -314,10 +451,11 @@ def lstm_scan_backward(
     """Backward of ``lstm_scan``: ``(dxw [T, B, 4H], dwh [H, 4H], db [4H])``
     from the forward's residuals ``hs``, ``cs`` and the upstream ``dhs``.
 
-    CUDA tensors go through ``csrc/lstm_bwd.cu`` (f32, contiguous, one
-    device) and count one launch in ``lstm_scan_backward.launches``; the
-    per-block ``dW_h``/``db`` partials are summed here over the block axis.
-    CPU tensors go through ``lstm_scan_backward_reference``.
+    CUDA tensors go through the three kernels of ``csrc/lstm_bwd.cu`` (f32,
+    contiguous, one device) and count one launch in
+    ``lstm_scan_backward.launches``; the ``S`` partials of ``dW_h``/``db``
+    are summed here in a fixed order. CPU tensors go through
+    ``lstm_scan_backward_reference``.
     """
     T, B, H = _check_shapes(xw, wh, b, cs)
     for name, t in (("hs", hs), ("dhs", dhs)):
@@ -332,9 +470,9 @@ def lstm_scan_backward(
     dxw = torch.empty_like(xw)
     if not (T and B):
         return dxw.zero_(), torch.zeros_like(wh), torch.zeros_like(b)
-    blocks = _bwd_blocks(B, H)
-    dwh_parts = torch.empty((blocks, H, 4 * H), dtype=torch.float32, device=xw.device)
-    db_parts = torch.empty((blocks, 4 * H), dtype=torch.float32, device=xw.device)
+    S = _wgrad_splits(T, B, H)
+    dwh_parts = torch.empty((S, H, 4 * H), dtype=torch.float32, device=xw.device)
+    db_parts = torch.empty((S, 4 * H), dtype=torch.float32, device=xw.device)
     _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts)
     _count(lstm_scan_backward)
     return dxw, dwh_parts.sum(dim=0), db_parts.sum(dim=0)
