@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero before the result line:
    timings of the kernel, the plain version and, where one exists, a
    library call as a yardstick. ``lstm_bwd`` is three kernels (gates,
    chain, weight gradients): each is held against its own plain piece, and
-   timed by CUDA events and by profiled device time.
+   timed by CUDA events and by profiled device time. ``lstm_fwd``, one
+   persistent kernel with a barrier across the grid between steps, must
+   also give bitwise the same result in 200 launches back to back.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -56,8 +58,10 @@ and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``tpuflow``.
 
 ``python3 chip_smoke.py --lstm-steps ROOT`` runs only a profiled window of
-20 LSTM-64 train steps of the port in the tree at ROOT, for comparing two
-trees on one card (run it once per tree, in turns, in one session).
+20 LSTM-64 train steps of the port in the tree at ROOT, then times that
+tree's ``lstm_fwd`` alone at H = 64 and at ``kernel_lstm_wide``'s shapes,
+for comparing two trees on one card (run it once per tree, in turns, on
+the same card).
 """
 
 from __future__ import annotations
@@ -101,6 +105,13 @@ BWD_PIECE_TOL = {"gates": 1e-5, "dz": 1e-5, "dwh": 1e-4, "db": 1e-4}
 # mae_clip vs plain: per-row f32 sums in another order, up to 98,304
 # elements a row; relative 1e-5.
 MAE_RTOL = 1e-5
+# lstm_fwd's hidden sizes past LSTM-64, each at B = 20 and 4096.
+WIDE_HIDDEN = (128, 256, 50, 300, 512, 2048)
+# lstm_fwd launches back to back that must equal the first bitwise, and the
+# (B, H) it runs them at: LSTM-64's training shape, and a ragged batch at
+# a width whose h rows are read 16 bytes at a time over several tiles.
+REPEAT_LAUNCHES = 200
+REPEAT_SHAPES = ((TRAIN_BATCH, 64), (37, 300))
 # Parameter gradients of one training batch, kernels vs plain path,
 # normwise 1e-4: they sum B*T products through both recurrences.
 GRAD_TOL = 1e-4
@@ -298,6 +309,7 @@ def phase_kernels(torch) -> dict:
         "lstm_bwd": kernel_lstm_bwd(torch),
         "mae_clip": kernel_mae_clip(torch),
     }
+    kernel_lstm_repeat(torch)
     kernel_lstm_wide(torch)
     records.update(kernel_flash(torch))
     records.update(kernel_ring(torch))
@@ -346,6 +358,31 @@ def kernel_lstm_fwd(torch) -> dict:
                   "bound_by": bound_by, "library_ms": library_ms}
     record["max_abs_err"] = worst
     return record
+
+
+def kernel_lstm_repeat(torch) -> None:
+    """REPEAT_LAUNCHES launches of lstm_fwd back to back on one stream at
+    each of REPEAT_SHAPES (T=24) must equal the first bitwise: a race at the
+    barrier between steps, or h of the step before read stale from another
+    SM, shows as a launch that differs. Raises on a mismatch."""
+    from tpuflow_torch.kernels.lstm import lstm_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for B, Hn in REPEAT_SHAPES:
+        xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
+        wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
+        b = torch.randn(4 * Hn, generator=gen, device=dev) * 0.1
+        first = lstm_scan(xw, wh, b)
+        runs = [lstm_scan(xw, wh, b) for _ in range(REPEAT_LAUNCHES)]
+        torch.cuda.synchronize()
+        bad = [i for i, hs in enumerate(runs) if not torch.equal(hs, first)]
+        if bad:
+            raise AssertionError(
+                f"lstm_fwd at B={B}, H={Hn}: launches {bad[:10]} of {REPEAT_LAUNCHES} "
+                "differ from the first")
+        log(f"[kernel] lstm_fwd B={B} H={Hn}: {REPEAT_LAUNCHES} launches back to back "
+            "equal the first bitwise")
 
 
 def profiled_ms(torch, fn, runs: int = 10) -> dict:
@@ -491,8 +528,8 @@ def kernel_lstm_bwd(torch) -> dict:
 
 def kernel_lstm_wide(torch) -> None:
     """lstm_fwd and lstm_bwd at hidden sizes past LSTM-64 (B = 20 and 4096):
-    H = 128 and 256 (W_h read through L2), 50, 300 and 512 (the forward's
-    layout with several units a thread) and 2048 (beyond the old 1024 cap).
+    H = 128, 256, 300 and 512 (past what a block's shared memory holds of
+    W_h), 50 (h read one float at a time) and 2048 (W_h past the L2).
     Same tolerances as at H = 64, each backward kernel against its plain
     piece; times are logged, with cuDNN's LSTM as the yardstick, and the
     JSON records stay those of H = 64."""
@@ -500,7 +537,7 @@ def kernel_lstm_wide(torch) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    for Hn in (128, 256, 50, 300, 512, 2048):
+    for Hn in WIDE_HIDDEN:
         for B in (TRAIN_BATCH, 4096):
             xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
             wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
@@ -991,7 +1028,31 @@ def lstm_steps(root: str) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     log_profiled_steps("lstm", device_ms_by_kernel(prof), wall_ms)
+    fwd_alone(torch)
     return 0
+
+
+def fwd_alone(torch) -> None:
+    """The imported tree's lstm_fwd alone (no gradients, no cs buffer, as
+    serving calls it) at H = 64 and WIDE_HIDDEN, B = 20 and 4096, T=24:
+    max abs error against that tree's plain version, milliseconds a call by
+    CUDA events (median of 10 after 3 warm calls) and its kernels' profiled
+    device milliseconds a call (10 calls in one window)."""
+    from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for Hn in (H, *WIDE_HIDDEN):
+        for B in (TRAIN_BATCH, 4096):
+            xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
+            wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
+            b = torch.randn(4 * Hn, generator=gen, device=dev) * 0.1
+            err = (lstm_scan(xw, wh, b) - lstm_scan_reference(xw, wh, b)[0]).abs().max().item()
+            ms = cuda_ms(torch, lambda: lstm_scan(xw, wh, b), runs=10)
+            by_kernel = profiled_ms(torch, lambda: lstm_scan(xw, wh, b))
+            device_ms = sum(v for k, v in by_kernel.items() if "lstm_fwd" in k)
+            log(f"[steps] lstm_fwd alone H={Hn} B={B:5d}: kernel_ms={ms:.4f} "
+                f"device_ms={device_ms:.4f} max_abs_err={err:.3e}")
 
 
 def _ring_batch() -> tuple[np.ndarray, np.ndarray]:

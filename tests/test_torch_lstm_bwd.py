@@ -223,8 +223,8 @@ def test_cuda_backward_repeats_bitwise(cuda_device, B, H):
 
 @pytest.mark.cuda
 def test_cuda_lstm_scan_at_hidden_2048(cuda_device):
-    """H = 2048 (beyond the old 1024 cap): the forward with 8 rows a thread,
-    the chain with W_h read through L2, against the plain versions."""
+    """H = 2048 (beyond the old 1024 cap): the forward over 128 unit tiles
+    a step, the chain with W_h read through L2, against the plain versions."""
     xw, wh, b, hs_ref, cs_ref, dhs = _card_case(cuda_device, 4, 2048, seed=5)
     cs = torch.empty_like(cs_ref)
     hs = lstm_scan(xw, wh, b, cs_out=cs)
@@ -239,8 +239,7 @@ def test_cuda_lstm_scan_at_hidden_2048(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_kernels_take_hidden_4096(cuda_device):
-    """Both kernels state a limit of at least 4096, and run there (the
-    forward with 4 rows a thread)."""
+    """Both kernels state a limit of at least 4096, and run there."""
     fwd = lstm_mod._library("lstm_fwd").tpuflow_lstm_fwd_max_hidden()
     bwd = lstm_mod._library("lstm_bwd").tpuflow_lstm_bwd_max_hidden()
     assert fwd >= 4096 and bwd >= 4096

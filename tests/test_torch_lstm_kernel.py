@@ -208,11 +208,15 @@ def test_cuda_autograd_runs_both_kernels(cuda_device):
         assert _normwise_err(got.grad, want.grad) <= 1e-4
     from tpuflow_torch.kernels import lstm as lstm_mod
 
+    # The forward's limit now passes the backward's, so the forward is fed
+    # at limit + 1 without gradients: its own refusal is the one tested.
     limit = lstm_mod._library("lstm_fwd").tpuflow_lstm_fwd_max_hidden()
     assert limit >= 4096
+    H = limit + 1
     with pytest.raises(ValueError, match=f"from 1 to {limit} "):
-        lstm_scan(*(torch.from_numpy(a).to(cuda_device).requires_grad_()
-                    for a in _case(2, 3, limit + 1)))
+        lstm_scan(torch.zeros((2, 3, 4 * H), device=cuda_device),
+                  torch.empty((H, 4 * H), device=cuda_device),
+                  torch.zeros(4 * H, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -235,13 +239,11 @@ def test_cuda_kernel_matches_plain_version(cuda_device, B):
 @pytest.mark.parametrize("B,H", [(20, 128), (37, 256), (5, 100), (20, 50), (4096, 50),
                                  (20, 300), (4096, 300), (20, 512), (4096, 512)])
 def test_cuda_kernels_take_hidden_sizes_beyond_shared_memory(cuda_device, B, H):
-    """Above H = 116 (forward) and H = 76 (backward) the kernels read W_h
-    through L2 and the backward keeps its dW_h/db partial in the global
-    buffer; an H that is not a multiple of 4 or is above 256 runs the
-    layout with several units a thread (and at B = 4096, H = 512 the
-    backward's blocks walk several batch tiles each). Tolerances as in the
-    tests above (forward 1e-5, backward normwise dxw 1e-5, dW_h and db
-    1e-4)."""
+    """Hidden sizes past what one block's shared memory holds of W_h: the
+    forward's h rows read 16 bytes at a time (H a multiple of 4) or one
+    float at a time (50), several tiles a block and step at B = 4096; the
+    backward's chain reads W_h through L2. Tolerances as in the tests
+    above (forward 1e-5, backward normwise dxw 1e-5, dW_h and db 1e-4)."""
     xw, wh, b = (torch.from_numpy(a).to(cuda_device) for a in _case(24, B, H, seed=H))
     wh = wh / H ** 0.5
     cs = torch.empty((24, B, H), device=cuda_device)

@@ -44,7 +44,8 @@
 // Design details:
 // - the two GEMMs use 64 x 64 output tiles, a reduction slice of 16 through
 //   shared memory, 256 threads each holding a 4 x 4 register tile read as
-//   float4 from shared memory; every load is masked, so any H, any B and a
+//   float4 from shared memory (lstm_common.cuh, shared with lstm_fwd.cu's
+//   persistent kernel); every load is masked, so any H, any B and a
 //   ragged last tile need no padding. lstm_bwd_wgrad, whose blocks run long
 //   reductions in a single wave, loads the next slice into registers while
 //   it multiplies the current one, and sums db with every thread (thread
@@ -79,45 +80,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lstm_common.cuh"
+
 namespace {
+
+using namespace lstm;  // the GEMM tiles of lstm_bwd_gates and lstm_bwd_wgrad
 
 constexpr size_t kMaxSharedBytes = 232448;  // what one block may use on sm_90
 constexpr int kSMs = 132;                   // streaming multiprocessors, H100 SXM
 constexpr size_t kPartialBytes = (size_t)256 << 20;  // what wgrad's partials may take
 
-// The GEMM tiles of lstm_bwd_gates and lstm_bwd_wgrad.
-constexpr int kTile = 64;    // output rows and columns a block
-constexpr int kSlice = 16;   // reduction depth a pass through shared memory
-constexpr int kGemmThreads = 256;  // 16 x 16, each a 4 x 4 register tile
-constexpr int kPad = 4;      // keeps the float4 reads of a tile row aligned
-constexpr int kLoads = kTile * kSlice / kGemmThreads;  // of each operand, a thread
 static_assert(kSlice == kGemmThreads / 16, "wgrad sums db over a slice's rows by ty");
 
 // The chain.
 constexpr int kChainThreads = 512;
 constexpr int kLanesPerUnit = 8;  // lanes that split one dh dot product
 constexpr int kMaxChainRows = 16;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// One pass over a kSlice-deep slice: acc[i][j] += a[kk][4ty+i] * b[kk][4tx+j].
-__device__ __forceinline__ void mma_slice(const float (*a)[kTile + kPad],
-                                          const float (*b)[kTile + kPad],
-                                          int tx, int ty, float acc[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kSlice; ++kk) {
-    const float4 av = *reinterpret_cast<const float4*>(&a[kk][4 * ty]);
-    const float4 bv = *reinterpret_cast<const float4*>(&b[kk][4 * tx]);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
 
 // Kernel 1: dxw <- activations of xw + Hprev @ W_h + b, over M = T*B rows.
 // Block (x, y) owns rows 64x .. 64x+63 and columns 64y .. 64y+63 of 4H.
@@ -144,11 +122,9 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ wh
       const int64_t m = m0 + r;
       const int k = k0 + kk;
       a_s[kk][r] = (m < M && m >= B && k < H) ? hs[(m - B) * H + k] : 0.0f;
-      // W_h[k, n].
-      const int kb = e / kTile, c = e & (kTile - 1);
-      const int kw = k0 + kb, n = n0 + c;
-      b_s[kb][c] = (kw < H && n < H4) ? wh[(int64_t)kw * H4 + n] : 0.0f;
     }
+    // W_h[k, n], tile column c being column n0 + c of 4H.
+    load_w_slice<false>(b_s, wh, k0, H, [=](int c) { return n0 + c < H4 ? n0 + c : -1; }, tid);
     __syncthreads();
     mma_slice(a_s, b_s, tx, ty, acc);
     __syncthreads();

@@ -1,347 +1,385 @@
-// Forward LSTM recurrence on Hopper (sm_90a), float32.
+// Forward LSTM recurrence on Hopper (sm_90a), float32, as one persistent
+// cooperative kernel.
 //
 // Replaces tpuflow/kernels/lstm.py::_fwd_kernel, the Pallas TPU kernel that
 // tpuflow/kernels/lstm.py::_fwd launches with pl.pallas_call for lstm_scan.
 // Same function: from zero state, for t = 0..T-1
-//     z   = xw_t + h @ W_h + b            (f32 accumulation)
+//     z   = xw_t + h_{t-1} @ W_h + b      (f32 accumulation)
 //     i, f, g, o = split(z, 4)            (gate order i, f, g, o)
 //     c   = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //     h   = sigmoid(o) * tanh(c)
 // writing hs[t] = h and, when the caller passes a buffer, cs[t] = c.
 //
-// What bounds it on an H100: at the serving shape (T=24, B=4096, H=64) the
-// recurrent product h @ W_h is 2*H*4H = 32768 operations per row and step,
-// 3.2 GFLOP in all, against 100 MB of xw read and 25 MB of hs written. On the
-// CUDA cores' f32 rate that is more time than the bytes take, so the bound is
-// the operations; the work is also a chain of T dependent steps per row.
+// The TPU kernel scans the T steps of a batch tile in one grid step, with
+// h @ W_h on the core's matrix unit and W_h in its VMEM. On an H100 one
+// block cannot hold W_h beyond H = 116, and a block per batch tile leaves
+// most of the 132 SMs idle at a small batch while each block streams all
+// of W_h every step: at B = 20, H = 2048 three blocks read a 67 MB W_h
+// (more than the 50 MB L2) from device memory 24 times. So each step's
+// product is spread over the whole card, and the steps are separated by a
+// barrier across the grid.
 //
-// Design (a simple kernel that is right; tensor cores, cp.async/TMA and
-// larger tiles are later work):
-// - one block per tile of kRowsPerThread * blockDim.y batch rows. Thread
-//   (j, y) owns hidden unit j of kRowsPerThread rows and computes the four
-//   gate pre-activations of columns j, H+j, 2H+j, 3H+j, so the gate math
-//   needs no exchange between threads, and it keeps c in registers in f32;
-// - W_h (H x 4H f32, 64 KB at H=64) is copied once into dynamic shared
-//   memory and read from there for all T steps; each value read feeds
-//   kRowsPerThread rows, and neighbouring threads read neighbouring columns.
-//   Where W_h does not fit (H > 116: 256 KB at H = 128), a second
-//   instantiation reads it from device memory through the read-only path
-//   (__ldg); at H = 256 it is 1 MB, which stays in the 50 MB L2 across the
-//   steps. That layout takes every H that is a multiple of 4 up to 256
-//   (one thread per hidden unit, h read as float4, so a row of h must be a
-//   whole number of float4);
-// - every other H (not a multiple of 4, or above 256) runs a third layout,
-//   lstm_fwd_f32_any_kernel: U = ceil(H / 256) units a thread, in strides
-//   of the block's width ceil(H / U), h read one float at a time, and c in
-//   shared memory (a thread holds U of them a row); W_h in shared memory
-//   where it fits (H <= 116), else through L2. Its tiles take 3 * rows * H
-//   floats: at 8 rows a thread (every H up to 2421) 96 * H bytes; where
-//   that does not fit, an instantiation with 4 rows a thread (48 * H
-//   bytes) takes H up to 4842. The limit is computed from those tiles and
-//   the shared memory a block may use (tpuflow_lstm_fwd_max_hidden);
-// - h of the tile lives in shared memory, double buffered (read one buffer,
-//   write the other), so one __syncthreads() per step suffices;
-// - xw_t is read from global memory each step (coalesced along j), so there
-//   is no ceiling on T and no padding of the batch;
-// - rows past the batch edge compute on zeros and store nothing.
+// What bounds it: every step reads W_h once across the grid (4H^2 floats)
+// and does 2 * H * 4H operations a row. At B = 20 the bytes of W_h bound
+// it where W_h does not stay in L2 (H = 2048: 24 x 67 MB at 3.35 TB/s is
+// 0.48 ms), and otherwise the latency of 24 dependent steps, each a few
+// round trips to L2 and a grid barrier. At B = 4096 the operations bound
+// it on the CUDA cores' f32 rate (67 TFLOP/s): 3.3 TFLOP at H = 2048.
+//
+// Design:
+// - a step's output is cut into tiles of 64 batch rows x 16 hidden units;
+//   the tile's 64 columns of z are the i, f, g, o of those units. Thread
+//   (tx, ty) of 256 holds a 4 x 4 register tile: rows 4ty .. 4ty+3, and
+//   the four gates of unit tx, so the cell update needs no exchange
+//   between threads (the GEMM code is lstm_common.cuh's, shared with
+//   lstm_bwd.cu; the W_h slice is copied unit-major, column 4u + gate);
+// - the reduction runs over k in slices of 16 through shared memory, with
+//   kStages slices in flight by cp.async: h rows by cp.async.cg (16 bytes,
+//   L2 only) where H is a multiple of 4, else by ld.global.cg into
+//   registers one slice ahead; W_h by 4-byte cp.async. Shared memory is
+//   the stages alone, so it does not grow with H. Warps whose rows all lie
+//   past the batch skip the products (at B = 20, five of eight);
+// - the grid is persistent: G = min(tiles, SMs x blocks an SM holds),
+//   launched with cudaLaunchCooperativeKernel, which refuses a grid that
+//   cannot be resident at once rather than deadlock. Block b takes tiles
+//   b, b + G, ... of every step in the same order, so the thread that
+//   writes c of an element at step t reads it at t+1: c needs no barrier
+//   (it lives in cs, or in a [B, H] scratch when the caller keeps no cs);
+// - between steps: __syncthreads, then one thread adds one to a global
+//   counter (zeroed by the caller) with red.release.gpu, which fences the
+//   block's writes before the add, and spins with ld.acquire.gpu until it
+//   reaches G * (t + 1). h of the step before is read only through L2
+//   (cp.async.cg, ld.global.cg), never through L1, whose lines are not
+//   coherent across SMs;
+// - what needs no h is issued before it is needed: the next tile's xw, b
+//   and c and the W_h slices of its first stages, right after a tile's
+//   epilogue (for the next step's first tile, between the barrier's
+//   arrival and its wait). Step 0 has h = 0 and runs no product;
+// - each element of hs and cs is computed by one thread, summing k in a
+//   fixed order; no float atomics, so results repeat bitwise;
+// - W_h is indexed in 32 bits, which sets the largest hidden size,
+//   4 H^2 < 2^31: H = 23170 (tpuflow_lstm_fwd_max_hidden).
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+// limit (device time a call, T = 24; PERF.md): LSTM-64's training shape
+// (B = 20, H = 64) 0.096 ms, 4.0 us a step, where the block-per-batch-tile
+// kernel it replaces took 0.157; B = 20 at H = 512 and 2048 0.41 and 1.42
+// ms (before: 5.57 and 188.9); B = 4096 at H = 512 and 2048 7.5 and 111.5
+// ms, 28-30 TFLOP/s (before: 17.3 and 694). At B = 4096, H = 64 it takes
+// 0.21 ms against the old kernel's 0.165: there the grid barrier (2.4 us
+// a step at 256 blocks) and h's round trip through L2 cost more than the
+// spread gains.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kRowsPerThread = 8;
-constexpr int kThreadsPerBlock = 256;
-constexpr size_t kMaxSharedBytes = 232448;  // what one block may use on sm_90
+using namespace lstm;
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+constexpr int kUnits = kTile / 4;  // hidden units a tile: its 64 columns are their 4 gates
+constexpr int kStages = 4;         // slices in flight (tunable, 3-4)
+constexpr int kMaxDevices = 64;
+constexpr uint64_t kBarrierTimeoutNs = 30ull * 1000 * 1000 * 1000;
 
-__device__ __forceinline__ float lane_of(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
+struct Stage {
+  ATileRow a;  // h: a[r][kk] = h_{t-1}[r0 + r, k0 + kk]
+  BTile b;     // W_h: b[kk][4u + g] = W_h[k0 + kk, g * H + u0 + u]
+};
 
-// W_h from shared memory (kSharedW) or from device memory through L2.
-template <bool kSharedW>
-__device__ __forceinline__ float load_w(const float* p) {
-  if constexpr (kSharedW) {
-    return *p;
+// W_h's column for tile column c: gate c % 4 of unit u0 + c / 4; -1 past H.
+struct UnitCols {
+  int u0, H;
+  __device__ __forceinline__ int operator()(int c) const {
+    const int u = u0 + (c >> 2);
+    return u < H ? (c & 3) * H + u : -1;
+  }
+};
+
+// h_{t-1} rows r0 .. r0+63, columns k0 .. k0+15. kVec: one 16-byte
+// cp.async.cg a thread into a. Else four ld.global.cg into hreg, element
+// tid + 256 q of the slice (kk fastest), stored by store_h.
+template <bool kVec>
+__device__ __forceinline__ void load_h(ATileRow& a, float hreg[kLoads], const float* hprev,
+                                       int64_t r0, int B, int H, int k0, int tid) {
+  if constexpr (kVec) {
+    const int r = tid >> 2, k = k0 + 4 * (tid & 3);
+    const int64_t row = r0 + r;
+    const bool in = row < B && k < H;
+    cp_async_16_cg(&a[r][k - k0], in ? hprev + row * H + k : hprev, in);
   } else {
-    return __ldg(p);
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int e = tid + q * kGemmThreads;
+      const int64_t row = r0 + (e >> 4);
+      const int k = k0 + (e & (kSlice - 1));
+      hreg[q] = (row < B && k < H) ? __ldcg(hprev + row * H + k) : 0.0f;
+    }
   }
 }
 
-// The float4 layout (one thread per hidden unit, h read as float4) takes H
-// a multiple of 4 up to 256; every other H runs lstm_fwd_f32_any_kernel.
-bool vec_path(int H) { return H % 4 == 0 && H <= kThreadsPerBlock; }
-
-// Block shape of both layouts: U = ceil(H / 256) hidden units a thread,
-// ceil(H / U) threads a block row, 256 / that many rows of threads (at
-// least one). For the float4 layout that is (H, 256 / H).
-dim3 block_for(int H) {
-  const int units = (H + kThreadsPerBlock - 1) / kThreadsPerBlock;
-  const int bx = (H + units - 1) / units;
-  const int by = kThreadsPerBlock / bx;
-  return dim3((unsigned)bx, (unsigned)(by > 0 ? by : 1));
-}
-
-// Rows a thread of the any-H layout: 4 where 8 would overflow shared memory.
-constexpr int kFewRowsPerThread = 4;
-
-size_t smem_bytes_for(int H, bool shared_w, int rows_per_thread) {
-  const size_t tile_rows = (size_t)block_for(H).y * rows_per_thread;
-  // h double buffered, and for the any-H layout c.
-  const size_t tiles = (vec_path(H) ? 2 : 3) * tile_rows * H;
-  return sizeof(float) * ((shared_w ? (size_t)H * 4 * H : 0) + tiles);
-}
-
-template <bool kSharedW>
-__global__ void lstm_fwd_f32_kernel(const float* __restrict__ xw,
-                                    const float* __restrict__ wh,
-                                    const float* __restrict__ bias,
-                                    float* __restrict__ hs,
-                                    float* __restrict__ cs,
-                                    int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int R = kRowsPerThread;
-  const int H4 = 4 * H;
-  const int tile_rows = R * blockDim.y;
-  float* w_s = smem;                           // [H, 4H] when kSharedW
-  float* h_s = smem + (kSharedW ? H * H4 : 0);  // [2, tile_rows, H]
-  const float* w_src = kSharedW ? w_s : wh;
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  if (kSharedW)
-    for (int i = tid; i < H * H4; i += nthreads) w_s[i] = wh[i];
-  for (int i = tid; i < 2 * tile_rows * H; i += nthreads) h_s[i] = 0.0f;
-
-  const int j = threadIdx.x;
-  const int r0 = threadIdx.y * R;  // this thread's first row in the tile
-  const int64_t row0 = (int64_t)blockIdx.x * tile_rows + r0;
-  const float bi = bias[j];
-  const float bf = bias[H + j];
-  const float bg = bias[2 * H + j];
-  const float bo = bias[3 * H + j];
-
-  float c[R];
+__device__ __forceinline__ void store_h(ATileRow& a, const float hreg[kLoads], int tid) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) c[r] = 0.0f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const float* h_in = h_s + (t & 1) * tile_rows * H;
-    float* h_out = h_s + ((t + 1) & 1) * tile_rows * H;
-
-    // This step's input projection; used only after the product below, so
-    // the loads' latency hides behind it.
-    float xi[R], xf[R], xg[R], xo[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int64_t row = row0 + r;
-      if (row < B) {
-        const float* x = xw + ((int64_t)t * B + row) * H4;
-        xi[r] = x[j];
-        xf[r] = x[H + j];
-        xg[r] = x[2 * H + j];
-        xo[r] = x[3 * H + j];
-      } else {
-        xi[r] = xf[r] = xg[r] = xo[r] = 0.0f;
-      }
-    }
-
-    // h @ W_h for the four gate columns of unit j.
-    float ai[R], af[R], ag[R], ao[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
-    for (int k = 0; k < H; k += 4) {
-      float4 hv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        hv[r] = *reinterpret_cast<const float4*>(h_in + (r0 + r) * H + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* w = w_src + (k + kk) * H4;
-        const float wi = load_w<kSharedW>(w + j);
-        const float wf = load_w<kSharedW>(w + H + j);
-        const float wg = load_w<kSharedW>(w + 2 * H + j);
-        const float wo = load_w<kSharedW>(w + 3 * H + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hk = lane_of(hv[r], kk);
-          ai[r] = fmaf(hk, wi, ai[r]);
-          af[r] = fmaf(hk, wf, af[r]);
-          ag[r] = fmaf(hk, wg, ag[r]);
-          ao[r] = fmaf(hk, wo, ao[r]);
-        }
-      }
-    }
-
-    // Gate math, in the reference's order: (xw + h @ W_h) + b.
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float zi = (xi[r] + ai[r]) + bi;
-      const float zf = (xf[r] + af[r]) + bf;
-      const float zg = (xg[r] + ag[r]) + bg;
-      const float zo = (xo[r] + ao[r]) + bo;
-      const float cn = sigmoid_f32(zf) * c[r] + sigmoid_f32(zi) * tanhf(zg);
-      const float hn = sigmoid_f32(zo) * tanhf(cn);
-      c[r] = cn;
-      h_out[(r0 + r) * H + j] = hn;
-      const int64_t row = row0 + r;
-      if (row < B) {
-        const int64_t o = ((int64_t)t * B + row) * H + j;
-        hs[o] = hn;
-        if (cs != nullptr) cs[o] = cn;
-      }
-    }
-    __syncthreads();
+  for (int q = 0; q < kLoads; ++q) {
+    const int e = tid + q * kGemmThreads;
+    a[e >> 4][e & (kSlice - 1)] = hreg[q];
   }
 }
 
-// Every H the float4 layout does not take, up to max_hidden(): thread x of
-// a block row owns hidden units x, x + blockDim.x, ... of R rows, reads h one float at a time and keeps c in shared memory. Same math,
-// in the same order, as lstm_fwd_f32_kernel.
-template <bool kSharedW, int R>
-__global__ void lstm_fwd_f32_any_kernel(const float* __restrict__ xw,
-                                        const float* __restrict__ wh,
-                                        const float* __restrict__ bias,
-                                        float* __restrict__ hs,
-                                        float* __restrict__ cs,
-                                        int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int H4 = 4 * H;
-  const int tile_rows = R * blockDim.y;
-  float* w_s = smem;                            // [H, 4H] when kSharedW
-  float* h_s = smem + (kSharedW ? H * H4 : 0);  // [2, tile_rows, H]
-  float* c_s = h_s + 2 * tile_rows * H;         // [tile_rows, H]
-  const float* w_src = kSharedW ? w_s : wh;
+// W_h slices of the first kStages - 1 stages for the tile of units u0..;
+// left uncommitted: they join the first group that tile_gemm commits.
+__device__ __forceinline__ void w_prologue(Stage* st, const float* wh, int u0, int H,
+                                           int tid) {
+  const int nslices = (H + kSlice - 1) / kSlice;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < nslices) load_w_slice<true>(st[s].b, wh, s * kSlice, H, UnitCols{u0, H}, tid);
+}
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  if (kSharedW)
-    for (int i = tid; i < H * H4; i += nthreads) w_s[i] = wh[i];
-  for (int i = tid; i < 3 * tile_rows * H; i += nthreads) h_s[i] = 0.0f;
-
-  const int r0 = threadIdx.y * R;  // this thread's first row in the tile
-  const int64_t row0 = (int64_t)blockIdx.x * tile_rows + r0;
+// acc += h_{t-1}[r0.., :] @ W_h[:, tile columns], the W_h prologue already
+// issued. Ends with a __syncthreads, after which the stages are free.
+template <bool kVec>
+__device__ __forceinline__ void tile_gemm(Stage* st, const float* wh, const float* hprev,
+                                          int64_t r0, int u0, int B, int H, int tid,
+                                          bool computes, float acc[4][4]) {
+  const int nslices = (H + kSlice - 1) / kSlice;
+  const int tx = tid & 15, ty = tid >> 4;
+  float hreg[kStages - 1][kLoads];  // without kVec: the prologue's loads all in flight
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < nslices) load_h<kVec>(st[s].a, hreg[s], hprev, r0, B, H, s * kSlice, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if constexpr (!kVec) {
+      if (s < nslices) store_h(st[s].a, hreg[s], tid);
+    }
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < nslices; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice sl is in; stage (sl - 1) % kStages is free
+    const int nxt = sl + kStages - 1;
+    Stage& fill = st[nxt % kStages];
+    if (nxt < nslices) {
+      load_w_slice<true>(fill.b, wh, nxt * kSlice, H, UnitCols{u0, H}, tid);
+      load_h<kVec>(fill.a, hreg[0], hprev, r0, B, H, nxt * kSlice, tid);
+    }
+    cp_async_commit();
+    if (computes) mma_slice(st[sl % kStages].a, st[sl % kStages].b, tx, ty, acc);
+    if constexpr (!kVec) {
+      if (nxt < nslices) store_h(fill.a, hreg[0], tid);
+    }
+  }
+  cp_async_wait<0>();
   __syncthreads();
+}
 
-  for (int t = 0; t < T; ++t) {
-    const float* h_in = h_s + (t & 1) * tile_rows * H;
-    float* h_out = h_s + ((t + 1) & 1) * tile_rows * H;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      // h @ W_h for the four gate columns of unit j.
-      float ai[R], af[R], ag[R], ao[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float* w = w_src + (int64_t)k * H4;
-        const float wi = load_w<kSharedW>(w + j);
-        const float wf = load_w<kSharedW>(w + H + j);
-        const float wg = load_w<kSharedW>(w + 2 * H + j);
-        const float wo = load_w<kSharedW>(w + 3 * H + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hk = h_in[(r0 + r) * H + k];
-          ai[r] = fmaf(hk, wi, ai[r]);
-          af[r] = fmaf(hk, wf, af[r]);
-          ag[r] = fmaf(hk, wg, ag[r]);
-          ao[r] = fmaf(hk, wo, ao[r]);
-        }
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// The barrier between steps, in two halves so that work that needs no h
+// goes between them. grid_arrive: after the block's __syncthreads, one
+// thread adds one to the counter with release semantics (the block's
+// writes before it are visible to whoever acquires the count: a
+// __threadfence and an atomicAdd in one instruction).
+__device__ __forceinline__ void grid_arrive(int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(counter) : "memory");
+}
+
+// grid_wait: that thread spins on an acquire load until all G blocks have
+// added theirs for this step (target G * (t + 1)), then the block goes on.
+// A wait past kBarrierTimeoutNs traps (the launch fails) instead of
+// holding the card.
+__device__ __forceinline__ void grid_wait(const int* counter, int target) {
+  if (threadIdx.x == 0) {
+    uint64_t start = 0;
+    for (int polls = 0;; ++polls) {
+      int seen;
+      asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+      if (seen >= target) break;
+      if ((polls & 1023) == 0) {
+        const uint64_t now = global_ns();
+        if (start == 0) start = now;
+        if (now - start > kBarrierTimeoutNs) __trap();
       }
-      const float bi = bias[j];
-      const float bf = bias[H + j];
-      const float bg = bias[2 * H + j];
-      const float bo = bias[3 * H + j];
-      // Gate math, in the reference's order: (xw + h @ W_h) + b.
+    }
+  }
+  __syncthreads();
+}
+
+// What a tile's epilogue needs besides h @ W_h: xw_t, b and c of the step
+// before, for thread (tx, ty)'s rows 4ty .. 4ty+3 and unit u0 + tx.
+struct Operands {
+  float x[4][4], c_prev[4], bias[4];
+};
+
+__device__ __forceinline__ void load_operands(Operands& op, const float* xw,
+                                              const float* bias, const float* c_in,
+                                              int64_t r0, int u, int t, int B, int H,
+                                              int ty) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int64_t row = row0 + r;
-        float xi = 0.0f, xf = 0.0f, xg = 0.0f, xo = 0.0f;
-        if (row < B) {
-          const float* x = xw + ((int64_t)t * B + row) * H4;
-          xi = x[j];
-          xf = x[H + j];
-          xg = x[2 * H + j];
-          xo = x[3 * H + j];
-        }
-        const float zi = (xi + ai[r]) + bi;
-        const float zf = (xf + af[r]) + bf;
-        const float zg = (xg + ag[r]) + bg;
-        const float zo = (xo + ao[r]) + bo;
-        float* c = c_s + (r0 + r) * H + j;
-        const float cn = sigmoid_f32(zf) * *c + sigmoid_f32(zi) * tanhf(zg);
+  for (int g = 0; g < 4; ++g) op.bias[g] = u < H ? bias[g * H + u] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = r0 + 4 * ty + i;
+    const bool in = u < H && row < B;
+    const float* xr = xw + ((int64_t)t * B + row) * 4 * H + u;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) op.x[i][g] = in ? xr[g * H] : 0.0f;
+    op.c_prev[i] = (in && t > 0) ? c_in[row * H + u] : 0.0f;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+lstm_fwd_f32_persistent(const float* __restrict__ xw, const float* __restrict__ wh,
+                        const float* __restrict__ bias, float* hs, float* cs,
+                        float* c_scratch, int* counter, int T, int B, int H) {
+  __shared__ __align__(16) Stage st[kStages];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int utiles = (H + kUnits - 1) / kUnits;
+  const int ntiles = ((B + kTile - 1) / kTile) * utiles;
+  const int G = gridDim.x;
+  const int64_t BH = (int64_t)B * H;
+  // c of step t-1 (read at step t > 0) and c of step t (written).
+  auto c_in = [&](int t) -> const float* {
+    return cs != nullptr ? cs + (t > 0 ? t - 1 : 0) * BH : c_scratch;
+  };
+  auto row0 = [&](int tile) { return (int64_t)(tile / utiles) * kTile; };
+  auto unit0 = [&](int tile) { return (tile % utiles) * kUnits; };
+
+  // The operands of the block's first tile; each tile then loads those of
+  // the next before it waits on anything.
+  Operands op;
+  load_operands(op, xw, bias, c_in(0), row0(blockIdx.x), unit0(blockIdx.x) + tx, 0, B, H,
+                ty);
+  for (int t = 0; t < T; ++t) {
+    const float* hprev = hs + (t > 0 ? t - 1 : 0) * BH;  // read only when t > 0
+    float* c_out = cs != nullptr ? cs + t * BH : c_scratch;
+    for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+      const int64_t r0 = row0(tile);
+      const int u0 = unit0(tile);
+      const int u = u0 + tx;
+
+      float acc[4][4] = {};
+      if (t > 0) {
+        const bool computes = r0 + 8 * (tid >> 5) < B;  // the warp has a row in the batch
+        tile_gemm<kVec>(st, wh, hprev, r0, u0, B, H, tid, computes, acc);
+      }
+
+      // Epilogue, in the reference's order: (xw + h @ W_h) + b.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t row = r0 + 4 * ty + i;
+        if (u >= H || row >= B) continue;
+        const float zi = (op.x[i][0] + acc[i][0]) + op.bias[0];
+        const float zf = (op.x[i][1] + acc[i][1]) + op.bias[1];
+        const float zg = (op.x[i][2] + acc[i][2]) + op.bias[2];
+        const float zo = (op.x[i][3] + acc[i][3]) + op.bias[3];
+        const float cn = sigmoid_f32(zf) * op.c_prev[i] + sigmoid_f32(zi) * tanhf(zg);
         const float hn = sigmoid_f32(zo) * tanhf(cn);
-        *c = cn;
-        h_out[(r0 + r) * H + j] = hn;
-        if (row < B) {
-          const int64_t o = ((int64_t)t * B + row) * H + j;
-          hs[o] = hn;
-          if (cs != nullptr) cs[o] = cn;
-        }
+        hs[t * BH + row * H + u] = hn;
+        c_out[row * H + u] = cn;
+      }
+
+      // The operands and W_h prologue of the block's next tile in this
+      // step; those of the next step's first tile go inside the barrier,
+      // below, after the arrival (a release there would wait on them).
+      const int next = tile + G;
+      if (next < ntiles) {
+        load_operands(op, xw, bias, c_in(t), row0(next), unit0(next) + tx, t, B, H, ty);
+        if (t > 0) w_prologue(st, wh, unit0(next), H, tid);
       }
     }
-    __syncthreads();
+    if (t + 1 < T) {
+      grid_arrive(counter);
+      load_operands(op, xw, bias, c_in(t + 1), row0(blockIdx.x), unit0(blockIdx.x) + tx,
+                    t + 1, B, H, ty);
+      w_prologue(st, wh, unit0(blockIdx.x), H, tid);
+      grid_wait(counter, G * (t + 1));
+    }
   }
 }
 
-// Rows a thread for hidden size H: kRowsPerThread where the tiles fit with
-// it (always on the float4 layout, and so for every H <= 1024), else
-// kFewRowsPerThread.
-int rows_per_thread_for(int H) {
-  return smem_bytes_for(H, false, kRowsPerThread) <= kMaxSharedBytes
-             ? kRowsPerThread
-             : kFewRowsPerThread;
-}
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-size_t smem_bytes_for(int H, bool shared_w) {
-  return smem_bytes_for(H, shared_w, rows_per_thread_for(H));
-}
-
-// The largest H whose tiles fit at kFewRowsPerThread rows a thread (above
-// 256 the block is one row of threads, so they take 3 * 4 * H floats).
+// The largest H whose W_h (4 H^2 floats) is indexed in 32 bits.
 int max_hidden() {
-  int h = (int)(kMaxSharedBytes / (sizeof(float) * 3 * kFewRowsPerThread));
-  while (h > 0 && smem_bytes_for(h, false, kFewRowsPerThread) > kMaxSharedBytes) --h;
-  return h;
+  static const int limit = [] {
+    int h = 1;
+    while (4 * (int64_t)(h + 1) * (h + 1) <= INT_MAX) ++h;
+    return h;
+  }();
+  return limit;
+}
+
+// Blocks of `kernel` that the device holds at once, per device.
+int resident_blocks(const void* kernel, int slot, int* out) {
+  static int cache[kMaxDevices][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && cache[dev][slot] > 0) {
+    *out = cache[dev][slot];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGemmThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *out = sms * per_sm;
+  if (dev < kMaxDevices) cache[dev][slot] = *out;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest hidden size the kernels take (every H from 1 up to it).
+// Largest hidden size the kernel takes (every H from 1 up to it).
 int tpuflow_lstm_fwd_max_hidden(void) { return max_hidden(); }
 
-// Launch shape for hidden size H: block_for(H), rows_per_thread_for(H) rows
-// per row of threads; the float4 layout where it applies, else the any-H
-// one; W_h in shared memory where it fits, else read through L2. Returns 0,
-// or the CUDA error code.
-int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b,
-                         float* hs, float* cs, int T, int B, int H,
+// hs [T, B, H] and, when cs is not null, cs [T, B, H] from xw [T, B, 4H],
+// W_h [H, 4H] and b [4H]. c_scratch [B, H] holds c between steps when cs
+// is null; counter is one int, zero on entry. Launches the persistent grid
+// cooperatively on `stream`. Returns 0, or the CUDA error code (the
+// launch's own when the grid cannot be resident at once).
+int tpuflow_lstm_fwd_f32(const float* xw, const float* wh, const float* b, float* hs,
+                         float* cs, float* c_scratch, int* counter, int T, int B, int H,
                          void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (H <= 0 || H > max_hidden()) return (int)cudaErrorInvalidValue;
-  const dim3 block = block_for(H);
-  const int rows = rows_per_thread_for(H);
-  const int tile_rows = (int)block.y * rows;
-  const bool shared_w = smem_bytes_for(H, true) <= kMaxSharedBytes;
-  const size_t smem = smem_bytes_for(H, shared_w);
-  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
-  auto kernel = vec_path(H)
-                    ? (shared_w ? lstm_fwd_f32_kernel<true> : lstm_fwd_f32_kernel<false>)
-                : rows == kRowsPerThread
-                    ? (shared_w ? lstm_fwd_f32_any_kernel<true, kRowsPerThread>
-                                : lstm_fwd_f32_any_kernel<false, kRowsPerThread>)
-                    : lstm_fwd_f32_any_kernel<false, kFewRowsPerThread>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((B + tile_rows - 1) / tile_rows));
-  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(xw, wh, b, hs, cs, T, B,
-                                                      H);
+  if (H <= 0 || H > max_hidden() || (cs == nullptr && c_scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = H % 4 == 0 && ((uintptr_t)hs & 15) == 0;
+  const void* kernel = vec ? (const void*)lstm_fwd_f32_persistent<true>
+                           : (const void*)lstm_fwd_f32_persistent<false>;
+  int resident = 0;
+  const int code = resident_blocks(kernel, vec ? 1 : 0, &resident);
+  if (code != 0) return code;
+  const int64_t tiles = ceil_div(B, kTile) * ceil_div(H, kUnits);
+  const int64_t G = tiles < resident ? tiles : resident;
+  if (G < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (tiles > INT_MAX || (int64_t)T * G > INT_MAX) return (int)cudaErrorInvalidValue;
+  void* args[] = {&xw, &wh, &b, &hs, &cs, &c_scratch, &counter, &T, &B, &H};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3((unsigned)G), dim3(kGemmThreads), args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises on the code returned
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -7,16 +7,16 @@ projection ``x @ W_x`` out of the recurrence as one matmul; what remains,
 
 Kernels:
 - ``csrc/lstm_fwd.cu`` replaces the Pallas TPU kernel
-  ``tpuflow/kernels/lstm.py::_fwd_kernel`` (launched by ``_fwd``). On an H100
-  it is bound by operations: at the serving shape (T=24, B=4096, H=64) the
-  recurrent product is 3.2 GFLOP on the f32 CUDA cores against 125 MB of
-  ``xw`` read and ``hs`` written. It keeps ``W_h`` in shared memory for all
-  steps (read through L2 instead where it does not fit, H > 116), ``h`` in
-  shared memory, ``c`` in registers, and gives each thread the four gate
-  columns of one hidden unit so the gate math needs no exchange between
-  threads. A multiple of 4 up to 256 runs one thread per hidden unit with
-  ``h`` read as float4; every other size runs a layout with several units a
-  thread and ``h`` read one float at a time.
+  ``tpuflow/kernels/lstm.py::_fwd_kernel`` (launched by ``_fwd``). It is
+  one persistent kernel, launched cooperatively, that spreads each step's
+  ``z = xw_t + h_{t-1} @ W_h + b`` over the whole card in tiles of 64
+  batch rows by 16 hidden units (the four gates of those units, so the
+  cell update stays in one thread), reduces over ``k`` in slices of 16
+  with several slices in flight by ``cp.async``, and separates the steps
+  by a barrier across the grid (a counter the wrapper zeroes). At a small
+  batch the bytes of ``W_h`` or the latency of the steps bound it; at a
+  large one the operations. ``lstm_fwd_tiled_reference`` states its
+  schedule in torch.
 - ``csrc/lstm_bwd.cu`` replaces ``_bwd_kernel`` (launched by ``_bwd``) with
   three kernels, launched one after the other by ``_bwd_kernel`` here:
   ``lstm_bwd_gates`` recomputes the gates of all ``T*B`` rows at once (a
@@ -30,9 +30,11 @@ Kernels:
   ``lstm_bwd_wgrad_reference``); composed they are
   ``lstm_scan_backward_reference``.
 
-The kernels compute the largest hidden size their shared-memory tiles take
-(``tpuflow_lstm_{fwd,bwd}_max_hidden``: 4842 forward, 9685 backward); the
-wrappers raise beyond it, naming the limit.
+The kernels state the largest hidden size they take
+(``tpuflow_lstm_{fwd,bwd}_max_hidden``: 23170 forward, where ``W_h``
+stops being addressable in 32 bits; 9685 backward, where its chain's
+shared-memory tiles stop fitting); the wrappers raise beyond it, naming the
+limit.
 
 ``lstm_scan`` is differentiable: when gradients are needed it runs as a
 ``torch.autograd.Function`` whose forward keeps the cell states and whose
@@ -106,7 +108,7 @@ def _library(stem: str) -> ctypes.CDLL:
         lib = _build.load(stem)
         if stem == "lstm_fwd":
             fn = lib.tpuflow_lstm_fwd_f32
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         else:
             for name, n_ptrs, n_ints in (("gates", 5, 3), ("chain", 4, 3), ("wgrad", 4, 4)):
@@ -123,14 +125,21 @@ def _library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+# What sets each kernel's largest hidden size.
+_LIMITED_BY = {
+    "lstm_fwd": "the most whose W_h it indexes in 32 bits",
+    "lstm_bwd": "the most its per-block tiles fit in shared memory",
+}
+
+
 def _refuse_hidden(stem: str, H: int) -> None:
     """Raise, naming the limit, when kernel ``stem`` does not take hidden
-    size H (1 up to the most its shared-memory tiles hold)."""
+    size H (1 up to the limit the library states)."""
     limit = getattr(_library(stem), f"tpuflow_{stem}_max_hidden")()
     if H <= 0 or H > limit:
         raise ValueError(
-            f"{stem} takes hidden sizes from 1 to {limit} (the most its "
-            f"per-block tiles fit in shared memory); got H={H}"
+            f"{stem} takes hidden sizes from 1 to {limit} ({_LIMITED_BY[stem]}); "
+            f"got H={H}"
         )
 
 
@@ -143,15 +152,22 @@ def _wgrad_splits(T: int, B: int, H: int) -> int:
 
 def _fwd_kernel(xw, wh, b, hs, cs) -> None:
     """Launch ``csrc/lstm_fwd.cu`` on the current stream into ``hs`` (and
-    ``cs`` when it is not None)."""
+    ``cs`` when it is not None). Allocates the kernel's scratch: ``c``
+    between steps when there is no ``cs``, and the zeroed counter of its
+    barrier across the grid. Raises when the launch is refused, as a
+    cooperative launch is for a grid that cannot be resident at once."""
     T, B, H = hs.shape
     _refuse_hidden("lstm_fwd", H)
+    c_scratch = None if cs is not None else torch.empty(
+        (B, H), dtype=torch.float32, device=xw.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=xw.device)
     lib = _library("lstm_fwd")
     with torch.cuda.device(xw.device):
         code = lib.tpuflow_lstm_fwd_f32(
             xw.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
             None if cs is None else cs.data_ptr(),
-            T, B, H, torch.cuda.current_stream().cuda_stream,
+            None if c_scratch is None else c_scratch.data_ptr(),
+            counter.data_ptr(), T, B, H, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, f"lstm_fwd launch (T={T}, B={B}, H={H})")
 
@@ -212,6 +228,49 @@ def lstm_scan_reference(
         hs[t] = h
         cs[t] = c.to(xw.dtype)
     return hs, cs
+
+
+def lstm_fwd_tiled_reference(
+    xw: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    rows: int = 64,
+    units: int = 16,
+    slice: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/lstm_fwd.cu``'s schedule in torch: ``(hs, cs)``, the function
+    of ``lstm_scan_reference``. Each step's output is cut into tiles of
+    ``rows`` batch rows by ``units`` hidden units, the last of each ragged;
+    a tile's columns of ``z`` are the four gates of its units, unit-major
+    (column ``4u + gate``, as the kernel copies its ``W_h`` slice). The
+    tile's ``h_{t-1} @ W_h`` is summed over ``k`` one slice of ``slice``
+    after the other (none at t = 0, where h is zero); the epilogue forms
+    ``z = (xw + acc) + b``, then ``c`` from the tile's ``c`` of the step
+    before, and ``h``. Nothing on the card path calls it."""
+    T, B, H = _check_shapes(xw, wh, b, None)
+    f32 = torch.float32
+    xw32, wh32, b32 = xw.to(f32), wh.to(f32), b.to(f32)
+    hs = torch.zeros((T, B, H), dtype=f32, device=xw.device)
+    cs = torch.zeros_like(hs)
+    gates = torch.arange(4, device=xw.device)
+    for t in range(T):
+        for r0 in range(0, B, rows):
+            r1 = min(r0 + rows, B)
+            for u0 in range(0, H, units):
+                u1 = min(u0 + units, H)
+                unit = torch.arange(u0, u1, device=xw.device)
+                cols = (gates[None, :] * H + unit[:, None]).reshape(-1)
+                acc = torch.zeros((r1 - r0, cols.numel()), dtype=f32, device=xw.device)
+                if t > 0:
+                    for k0 in range(0, H, slice):
+                        acc += hs[t - 1, r0:r1, k0 : k0 + slice] @ wh32[k0 : k0 + slice, cols]
+                z = ((xw32[t, r0:r1, cols] + acc) + b32[cols]).view(r1 - r0, u1 - u0, 4)
+                zi, zf, zg, zo = z.unbind(-1)
+                c_prev = cs[t - 1, r0:r1, u0:u1] if t > 0 else torch.zeros_like(zi)
+                c = torch.sigmoid(zf) * c_prev + torch.sigmoid(zi) * torch.tanh(zg)
+                hs[t, r0:r1, u0:u1] = torch.sigmoid(zo) * torch.tanh(c)
+                cs[t, r0:r1, u0:u1] = c
+    return hs.to(xw.dtype), cs.to(xw.dtype)
 
 
 def lstm_scan_backward_reference(
