@@ -13,16 +13,20 @@ Phases, in order; any failure exits non-zero before the result line:
    compiled by ``nvcc`` (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes the training and serving paths give it (``lstm_fwd``,
-   ``lstm_bwd``, ``mae_clip``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
-   ``ring_round_fwd``, ``ring_round_bwd``; the LSTM kernels also at hidden
-   sizes 128, 256, 50, 300, 512 and 2048; the ring rounds at five shapes,
-   each with a diagonal, a past and a future block), with CUDA-event
-   timings of the kernel, the plain version and, where one exists, a
-   library call as a yardstick. ``lstm_bwd`` is three kernels (gates,
-   chain, weight gradients): each is held against its own plain piece, and
-   timed by CUDA events and by profiled device time. ``lstm_fwd``, one
-   persistent kernel with a barrier across the grid between steps, must
-   also give bitwise the same result in 200 launches back to back.
+   ``lstm_bwd``, ``mae_clip``, ``mae_clip_grad``, ``flash_fwd``,
+   ``flash_dq``, ``flash_dkv``, ``ring_round_fwd``, ``ring_round_bwd``; the
+   LSTM kernels also at hidden sizes 128, 256, 50, 300, 512 and 2048, and
+   the backward at 12000, past the hidden size whose chain tiles fit in
+   shared memory; the ring rounds at five shapes, each with a diagonal, a
+   past and a future block), with CUDA-event timings of the kernel, the
+   plain version and, where one exists, a library call as a yardstick.
+   ``lstm_bwd`` is three kernels (gates, chain, weight gradients): each is
+   held against its own plain piece, and timed by CUDA events and by
+   profiled device time. ``mae_clip_grad`` must equal its plain version bit
+   for bit. ``lstm_fwd`` (one persistent kernel with a barrier across the
+   grid between steps), ``mae_clip`` (whose wide rows are summed by the
+   block that draws the last ticket), ``mae_clip_grad`` and ``flash_fwd``
+   must also give bitwise the same result in 200 launches back to back.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -59,9 +63,17 @@ and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 
 ``python3 chip_smoke.py --lstm-steps ROOT`` runs only a profiled window of
 20 LSTM-64 train steps of the port in the tree at ROOT, then times that
-tree's ``lstm_fwd`` alone at H = 64 and at ``kernel_lstm_wide``'s shapes,
-for comparing two trees on one card (run it once per tree, in turns, on
-the same card).
+tree's ``lstm_fwd`` and ``lstm_bwd`` alone at H = 64 and at
+``kernel_lstm_wide``'s shapes, for comparing two trees on one card (run it
+once per tree, in turns, on the same card).
+
+``python3 chip_smoke.py --flash-loss-steps ROOT`` runs, in the tree at
+ROOT, profiled windows of 20 LSTM-64 and 20 attention train steps (device
+kernels launched a step, device ms by kernel), the loss's forward and
+backward alone (host microseconds a call, kernels a call), then that
+tree's ``flash_fwd`` at ``FLASH_SHAPES`` and ``mae_clip`` (and
+``mae_clip_grad`` where the tree has it) at their shapes alone, by CUDA
+events and profiled device time; for comparing two trees in turns.
 """
 
 from __future__ import annotations
@@ -107,6 +119,12 @@ BWD_PIECE_TOL = {"gates": 1e-5, "dz": 1e-5, "dwh": 1e-4, "db": 1e-4}
 MAE_RTOL = 1e-5
 # lstm_fwd's hidden sizes past LSTM-64, each at B = 20 and 4096.
 WIDE_HIDDEN = (128, 256, 50, 300, 512, 2048)
+# A hidden size past 9685, where lstm_bwd's chain keeps its tiles in device
+# memory; run at B = 20 only (W_h alone is 2.3 GB).
+BEYOND_SHARED_HIDDEN = 12000
+# mae_clip's shapes: the train loss at batch 20, the eval (one row an
+# example), and a row of the serving chunk's size (several blocks a row).
+MAE_SHAPES = ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T))
 # lstm_fwd launches back to back that must equal the first bitwise, and the
 # (B, H) it runs them at: LSTM-64's training shape, and a ragged batch at
 # a width whose h rows are read 16 bytes at a time over several tiles.
@@ -154,6 +172,12 @@ FORWARD_KERNEL = {"lstm": "lstm_fwd", "stacked_lstm": "lstm_fwd",
 # Served predictions vs the plain path, in normalised target units (they are
 # compared after denormalisation, so scaled by target_std).
 PRED_ATOL_NORM = 1e-5
+# The tensor cores' TF32 rate and the exponentials an SM issues a clock
+# (compute capability 9.0) at the H100 SXM's 1.98 GHz boost clock: the
+# bound of flash_fwd's long-window kernel, which runs its products in
+# 3xTF32 (three TF32 products for each f32 one).
+TF32_FLOP_PER_S = 495e12
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -253,10 +277,30 @@ def ring_bwd_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
     return _bound(nbytes, 10 * D * BH * pairs)
 
 
+def flash_fwd_tc_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_fwd on the tensor cores in 3xTF32: the larger of
+    its bytes over the HBM rate, three times its 4*D operations a causal
+    pair over the TF32 rate, and one exponential a causal pair over the
+    SFUs' rate."""
+    pairs = BH * causal_pairs(Tn)
+    times = {"bytes": 4 * (4 * BH * Tn * D + BH * Tn) / HBM_BYTES_PER_S,
+             "tensor cores": 3 * 4 * D * pairs / TF32_FLOP_PER_S,
+             "exponentials": pairs / SFU_EXP_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
-    """Least time for mae_clip: both operands read once, R sums written;
+    """Least time for mae_clip: both operands read once, R means written;
     4 operations per element (subtract, abs, clip, add)."""
     return _bound(4 * (2 * R * N + R), 4 * R * N)
+
+
+def mae_clip_grad_bound(n: int) -> tuple[float, str]:
+    """Least time for mae_clip_grad: both operands and g read once, both
+    gradients written once; 5 operations per element (subtract, |d| <
+    clip, sign times the mask, times g / n, negate)."""
+    return _bound(4 * (4 * n + 1), 5 * n)
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -307,11 +351,12 @@ def phase_kernels(torch) -> dict:
     records = {
         "lstm_fwd": kernel_lstm_fwd(torch),
         "lstm_bwd": kernel_lstm_bwd(torch),
-        "mae_clip": kernel_mae_clip(torch),
     }
+    records.update(kernel_mae_clip(torch))
     kernel_lstm_repeat(torch)
     kernel_lstm_wide(torch)
     records.update(kernel_flash(torch))
+    kernel_repeat(torch)
     records.update(kernel_ring(torch))
     return records
 
@@ -529,10 +574,10 @@ def kernel_lstm_bwd(torch) -> dict:
 def kernel_lstm_wide(torch) -> None:
     """lstm_fwd and lstm_bwd at hidden sizes past LSTM-64 (B = 20 and 4096):
     H = 128, 256, 300 and 512 (past what a block's shared memory holds of
-    W_h), 50 (h read one float at a time) and 2048 (W_h past the L2).
-    Same tolerances as at H = 64, each backward kernel against its plain
-    piece; times are logged, with cuDNN's LSTM as the yardstick, and the
-    JSON records stay those of H = 64."""
+    W_h), 50 (h read one float at a time) and 2048 (W_h past the L2); then
+    BEYOND_SHARED_HIDDEN at B = 20. Same tolerances as at H = 64, each
+    backward kernel against its plain piece; times are logged, with cuDNN's
+    LSTM as the yardstick, and the JSON records stay those of H = 64."""
     from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
 
     dev = torch.device("cuda")
@@ -565,6 +610,59 @@ def kernel_lstm_wide(torch) -> None:
                 f"(cuDNN nn.LSTM forward) bound_ms={fb:.4f} ({fby})")
             check_lstm_bwd(torch, xw, wh, b, ref_hs, ref_cs, dhs, f"H={Hn} B={B:5d}",
                            runs=5 if big else 10)
+    kernel_lstm_beyond_shared(torch)
+
+
+def kernel_lstm_beyond_shared(torch) -> None:
+    """lstm_fwd and lstm_bwd at H = BEYOND_SHARED_HIDDEN, B = 20, T = 24:
+    past H = 9685 the backward's chain keeps its tiles in a scratch in
+    device memory. Both against their plain versions at the tolerances of
+    H = 64, each backward kernel against its plain piece; timed by CUDA
+    events, without the cuDNN yardstick (its identity input projection
+    alone would be 9.2 GB)."""
+    from tpuflow_torch.kernels.lstm import (
+        lstm_bwd_chain,
+        lstm_bwd_chain_reference,
+        lstm_bwd_gates_reference,
+        lstm_scan,
+        lstm_scan_backward,
+        lstm_scan_backward_reference,
+        lstm_scan_reference,
+    )
+
+    Hn, B = BEYOND_SHARED_HIDDEN, TRAIN_BATCH
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev)
+    wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
+    b = torch.randn(4 * Hn, generator=gen, device=dev) * 0.1
+    dhs = torch.randn((T, B, Hn), generator=gen, device=dev)
+    cs = torch.empty((T, B, Hn), device=dev)
+    hs = lstm_scan(xw, wh, b, cs_out=cs)
+    got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+    gates = lstm_bwd_gates_reference(xw, wh, b, hs)
+    dz = lstm_bwd_chain(wh, cs, dhs, gates.clone())
+    torch.cuda.synchronize()
+    ref_hs, ref_cs = lstm_scan_reference(xw, wh, b)
+    fwd_err = max((hs - ref_hs).abs().max().item(), (cs - ref_cs).abs().max().item())
+    want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    errs = {k: normwise_err(g, w) for k, g, w in zip(BWD_TOL, got, want)}
+    dz_err = normwise_err(dz, lstm_bwd_chain_reference(wh, cs, dhs, gates))
+    del want
+    bad = {k: e for k, e in errs.items() if not e <= BWD_TOL[k]}
+    if dz_err > BWD_PIECE_TOL["dz"]:
+        bad["chain dz"] = dz_err
+    if bad or not (torch.allclose(hs, ref_hs, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                   and torch.allclose(cs, ref_cs, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)):
+        raise AssertionError(f"lstm at H={Hn}, B={B} disagrees with its plain version: "
+                             f"forward max abs err {fwd_err:.3e}, backward {bad}")
+    fwd_ms = cuda_ms(torch, lambda: lstm_scan(xw, wh, b), runs=3, warmup=1)
+    bwd_ms = cuda_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs),
+                     runs=3, warmup=1)
+    log(f"[kernel] lstm H={Hn} B={B} (chain tiles in device memory): lstm_fwd max_abs_err="
+        f"{fwd_err:.3e} kernel_ms={fwd_ms:.4f}; lstm_bwd normwise_err="
+        + ",".join(f"{k}:{v:.3e}" for k, v in errs.items())
+        + f", chain dz {dz_err:.3e}; kernel_ms={bwd_ms:.4f} (CUDA events)")
 
 
 def kernel_flash(torch) -> dict:
@@ -649,9 +747,13 @@ def kernel_flash(torch) -> dict:
             f"sdpa_fwd_bwd_ms={sdpa_both:.4f}")
         for name in ms:
             bound_ms, bound_by = bounds[name]
+            extra = ""
+            if name == "flash_fwd":
+                tc_ms, tc_by = flash_fwd_tc_bound(BH, Tn, D)
+                extra = f"; tensor-core/SFU bound_ms={tc_ms:.6f} ({tc_by})"
             log(f"[kernel]   {name:9s} max_abs_err={errs[name]:.3e} kernel_ms={ms[name]:.4f} "
                 f"plain_ms={plain_ms[name]:.4f} library_ms={library_ms[name]:.4f} "
-                f"bound_ms={bound_ms:.6f} ({bound_by})")
+                f"bound_ms={bound_ms:.6f} ({bound_by}){extra}")
         keep = ("flash_fwd",) if (BH, Tn, D) == (16384, T, 16) else (
             ("flash_dq", "flash_dkv") if (BH, Tn, D) == (TRAIN_BATCH * 4, T, 16) else ())
         for name in keep:
@@ -754,40 +856,115 @@ def kernel_ring(torch) -> dict:
 
 
 def kernel_mae_clip(torch) -> dict:
-    """mae_clip against mae_clip_reference at [1, 480] (the train loss at
-    batch 20), [20, 24] (eval, one row per example) and [1, 4096*24];
-    returns the record of the train-loss shape."""
+    """mae_clip against mae_clip_reference at MAE_SHAPES, and mae_clip_grad
+    against mae_clip_grad_reference bit for bit at the same shapes (with
+    zero errors and a NaN input among them); returns the records of the
+    train-loss shape, [1, 480]."""
     from tpuflow_torch.core.losses import CLIP_VALUE
-    from tpuflow_torch.kernels.losses import mae_clip_reference, mae_clip_rows
+    from tpuflow_torch.kernels.losses import (
+        mae_clip_grad,
+        mae_clip_grad_reference,
+        mae_clip_reference,
+        mae_clip_rows,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     log(f"[kernel] mae_clip vs mae_clip_reference: f32, clip {CLIP_VALUE}; "
-        f"tolerance rtol={MAE_RTOL} (per-row f32 sums in another order)")
-    record, worst = None, 0.0
-    for R, N in ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T)):
+        f"tolerance rtol={MAE_RTOL} (per-row f32 sums in another order); "
+        "mae_clip_grad vs mae_clip_grad_reference: bitwise (the same arithmetic "
+        "in the same order)")
+    records, worst, grad_worst = {}, 0.0, 0.0
+    for R, N in MAE_SHAPES:
         yt = torch.randn((R, N), generator=gen, device=dev) * 5
         yp = torch.randn((R, N), generator=gen, device=dev) * 5
+        yp[0, :3] = yt[0, :3]
+        g = torch.rand((), generator=gen, device=dev)
         got = mae_clip_rows(yt, yp, CLIP_VALUE)
+        grads = mae_clip_grad(yt, yp, g, CLIP_VALUE)
         torch.cuda.synchronize()
         want = mae_clip_reference(yt, yp, CLIP_VALUE)
+        want_grads = mae_clip_grad_reference(yt, yp, g, CLIP_VALUE)
         err = (got - want).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(got, want, atol=0, rtol=MAE_RTOL):
             raise AssertionError(
                 f"mae_clip disagrees with its plain version at [{R}, {N}]: "
                 f"max abs err {err:.3e}")
+        for name, a, b in zip(("dyt", "dyp"), grads, want_grads):
+            grad_worst = max(grad_worst, (a - b).abs().max().item())
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"mae_clip_grad's {name} differs from its plain "
+                                     f"version at [{R}, {N}]")
+        yt_nan = yt.clone()
+        yt_nan[-1, -1] = float("nan")
+        nan_got = mae_clip_grad(yt_nan, yp, g, CLIP_VALUE)
+        nan_want = mae_clip_grad_reference(yt_nan, yp, g, CLIP_VALUE)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(nan_got, nan_want)):
+            raise AssertionError(f"mae_clip_grad differs from its plain version at "
+                                 f"[{R}, {N}] with a NaN input")
         kernel_ms = cuda_ms(torch, lambda: mae_clip_rows(yt, yp, CLIP_VALUE))
         plain_ms = cuda_ms(torch, lambda: mae_clip_reference(yt, yp, CLIP_VALUE))
+        device_ms = sum(profiled_ms(torch, lambda: mae_clip_rows(yt, yp, CLIP_VALUE)).values())
+        grad_ms = cuda_ms(torch, lambda: mae_clip_grad(yt, yp, g, CLIP_VALUE))
+        grad_plain_ms = cuda_ms(torch, lambda: mae_clip_grad_reference(yt, yp, g, CLIP_VALUE))
+        grad_device_ms = sum(profiled_ms(
+            torch, lambda: mae_clip_grad(yt, yp, g, CLIP_VALUE)).values())
         bound_ms, bound_by = mae_clip_bound(R, N)
+        grad_bound_ms, grad_bound_by = mae_clip_grad_bound(R * N)
         log(f"[kernel] mae_clip [{R}, {N}]: max_abs_err={err:.3e} "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
-            f"(no single PyTorch call computes it) bound_ms={bound_ms:.6f} ({bound_by})")
-        if record is None:
-            record = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": None}
-    record["max_abs_err"] = worst
-    return record
+            f"kernel_ms={kernel_ms:.4f} device_ms={device_ms:.4f} (profiled) "
+            f"plain_ms={plain_ms:.4f} library_ms=null "
+            f"(no single PyTorch call computes it) bound_ms={bound_ms:.6f} ({bound_by}); "
+            f"mae_clip_grad bitwise kernel_ms={grad_ms:.4f} device_ms={grad_device_ms:.4f} "
+            f"plain_ms={grad_plain_ms:.4f} library_ms=null bound_ms={grad_bound_ms:.6f} "
+            f"({grad_bound_by})")
+        if not records:
+            records = {
+                "mae_clip": {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": None},
+                "mae_clip_grad": {"ms": grad_ms, "plain_ms": grad_plain_ms,
+                                  "bound_ms": grad_bound_ms, "bound_by": grad_bound_by,
+                                  "library_ms": None},
+            }
+    records["mae_clip"]["max_abs_err"] = worst
+    records["mae_clip_grad"]["max_abs_err"] = grad_worst
+    return records
+
+
+def kernel_repeat(torch) -> None:
+    """REPEAT_LAUNCHES launches back to back of mae_clip and mae_clip_grad
+    (at each of MAE_SHAPES: the wide row's last block sums by ticket) and of
+    flash_fwd (at each of FLASH_SHAPES) must equal the first bitwise.
+    Raises on a mismatch."""
+    from tpuflow_torch.core.losses import CLIP_VALUE
+    from tpuflow_torch.kernels.attention import flash_attention_forward
+    from tpuflow_torch.kernels.losses import mae_clip_grad, mae_clip_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = [(f"mae_clip and mae_clip_grad [{R}, {N}]",
+              lambda a=torch.randn((R, N), generator=gen, device=dev) * 5,
+              b=torch.randn((R, N), generator=gen, device=dev) * 5,
+              g=torch.rand((), generator=gen, device=dev):
+              (mae_clip_rows(a, b, CLIP_VALUE), *mae_clip_grad(a, b, g, CLIP_VALUE)))
+             for R, N in MAE_SHAPES]
+    cases += [(f"flash_fwd {(BH, Tn, D)}",
+               lambda qkv=[torch.randn((BH, Tn, D), generator=gen, device=dev)
+                           for _ in range(3)]: flash_attention_forward(*qkv))
+              for BH, Tn, D in FLASH_SHAPES]
+    for what, fn in cases:
+        first = fn()
+        runs = [fn() for _ in range(REPEAT_LAUNCHES)]
+        torch.cuda.synchronize()
+        bad = [i for i, out in enumerate(runs)
+               if not all(torch.equal(a, b) for a, b in zip(out, first))]
+        if bad:
+            raise AssertionError(f"{what}: launches {bad[:10]} of {REPEAT_LAUNCHES} differ "
+                                 "from the first")
+        log(f"[kernel] {what}: {REPEAT_LAUNCHES} launches back to back equal the first "
+            "bitwise")
 
 
 def expected_train_launches(config) -> tuple[dict, dict]:
@@ -796,8 +973,9 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     batches, padded val batches each epoch, then the test split once at
     the final eval's batch (256 when it is over 4 train batches). Each of
     the model's layers runs its family's forward kernel once per batch and
-    its backward kernels once per train batch; the family's other kernels
-    and the other family's run no time."""
+    its backward kernels once per train batch; the loss's kernel runs once
+    per batch and its gradient once per train batch; the family's other
+    kernels and the other family's run no time."""
     n = config.synthetic_wells * (config.synthetic_steps - config.window + 1)
     n_train, n_val = int(round(n * 0.64)), int(round(n * 0.16))
     n_test = n - n_train - n_val
@@ -811,6 +989,7 @@ def expected_train_launches(config) -> tuple[dict, dict]:
         "ring_round_fwd": 0, "ring_round_bwd": 0,
         FORWARD_KERNEL[config.model]: layers * (train_b + val_b) * epochs + layers * test_b,
         "mae_clip": (train_b + val_b) * epochs + test_b,
+        "mae_clip_grad": train_b * epochs,
     }
     for name in backward:
         want[name] = layers * train_b * epochs
@@ -953,7 +1132,7 @@ def steady_steps(torch, model_name, model, x, y, smi) -> None:
 # The port's kernels as the profiler names them; the backward of the LSTM
 # is its three kernels.
 OUR_KERNELS = ("lstm_fwd_f32", "lstm_bwd_gates", "lstm_bwd_chain", "lstm_bwd_wgrad",
-               "flash_", "clipped_abs_partial", "row_sum_kernel")
+               "flash_", "mae_clip_", "clipped_abs_partial", "row_sum_kernel")
 LSTM_BWD_KERNELS = ("lstm_bwd_gates", "lstm_bwd_chain", "lstm_bwd_wgrad")
 
 
@@ -976,40 +1155,43 @@ def log_profiled_steps(model_name, by_kernel: dict, wall_ms: float) -> None:
         + "; ".join(f"{k[:60]}={v:.4f}" for k, v in top))
 
 
-def lstm_steps(root: str) -> int:
-    """``--lstm-steps ROOT``: profiled LSTM-64 train steps of the port in the
-    tree at ROOT (this checkout, or another tree unpacked beside it), so
-    that two trees can be compared in one run on one card: build ROOT's
-    kernels, then 10 warm steps and one profiled window of 20 steps at
-    batch 20 (keras_sgd, mae_clip) on seeded wells and weights."""
+def _tree(root: str):
+    """Import the port from the tree at ROOT (this checkout, or another tree
+    unpacked beside it) and build its kernels; returns ``torch``, or None
+    when there is no card."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, os.path.abspath(root))
     import tpuflow_torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tpuflow_torch.core.losses import mae_clip
-    from tpuflow_torch.data.pipeline import prepare_windowed
-    from tpuflow_torch.data.synthetic import generate_wells
     from tpuflow_torch.kernels import _build
-    from tpuflow_torch.models import build_model
-    from tpuflow_torch.train.optim import keras_sgd
-    from tpuflow_torch.train.steps import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     log(f"[steps] tree {os.path.dirname(os.path.abspath(tpuflow_torch.__file__))}; "
         f"card: {nvidia_smi()}")
+    return torch
+
+
+def _train_steps(torch, model_name: str):
+    """A train step of ``model_name`` (seeded weights, keras_sgd, mae_clip)
+    and ``run(k)``, k steps at batch 20 over the seeded wells' windows."""
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.data.pipeline import prepare_windowed
+    from tpuflow_torch.data.synthetic import generate_wells
+    from tpuflow_torch.models import build_model
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_train_step
+
     splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
                               window=T, seed=0, teacher_forcing=True)
     x = torch.from_numpy(splits.train.x).cuda()
     y = torch.from_numpy(splits.train.y).cuda()
-    model = build_model("lstm", len(FEATURES), window=T)
+    model = build_model(model_name, len(FEATURES), window=T)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.cuda()
     step = make_train_step(model, keras_sgd().bind(model.parameters()), mae_clip)
@@ -1020,25 +1202,57 @@ def lstm_steps(root: str) -> int:
             s = (i % n_batches) * TRAIN_BATCH
             step(x[s : s + TRAIN_BATCH], y[s : s + TRAIN_BATCH])
 
+    return run
+
+
+def _profiled_steps(torch, run, steps: int = 20):
+    """10 warm steps, then ``steps`` in one profiler window: (profile, wall
+    ms of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
     run(10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(20)
+        run(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def device_launches(prof) -> dict:
+    """Device activities by name in a profiler window, as counts: kernels,
+    and the memory copies and sets, each launched on the device."""
+    from torch.autograd import DeviceType
+
+    return {evt.key: evt.count for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+            and not getattr(evt, "is_user_annotation", False)}
+
+
+def lstm_steps(root: str) -> int:
+    """``--lstm-steps ROOT``: profiled LSTM-64 train steps of the port in the
+    tree at ROOT, so that two trees can be compared in one run on one card:
+    build ROOT's kernels, then 10 warm steps and one profiled window of 20
+    steps at batch 20 (keras_sgd, mae_clip) on seeded wells and weights;
+    then ROOT's LSTM kernels alone."""
+    torch = _tree(root)
+    if torch is None:
+        return 1
+    prof, wall_ms = _profiled_steps(torch, _train_steps(torch, "lstm"))
     log_profiled_steps("lstm", device_ms_by_kernel(prof), wall_ms)
-    fwd_alone(torch)
+    lstm_alone(torch)
     return 0
 
 
-def fwd_alone(torch) -> None:
+def lstm_alone(torch) -> None:
     """The imported tree's lstm_fwd alone (no gradients, no cs buffer, as
-    serving calls it) at H = 64 and WIDE_HIDDEN, B = 20 and 4096, T=24:
-    max abs error against that tree's plain version, milliseconds a call by
-    CUDA events (median of 10 after 3 warm calls) and its kernels' profiled
-    device milliseconds a call (10 calls in one window)."""
-    from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
+    serving calls it) and lstm_bwd alone at H = 64 and WIDE_HIDDEN, B = 20
+    and 4096, T=24: the forward's max abs error against that tree's plain
+    version, milliseconds a call by CUDA events (median of 10 after 3 warm
+    calls; the backward at B = 4096 and H >= 512 median of 3) and each
+    one's kernels' profiled device milliseconds a call."""
+    from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_backward, lstm_scan_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1053,6 +1267,91 @@ def fwd_alone(torch) -> None:
             device_ms = sum(v for k, v in by_kernel.items() if "lstm_fwd" in k)
             log(f"[steps] lstm_fwd alone H={Hn} B={B:5d}: kernel_ms={ms:.4f} "
                 f"device_ms={device_ms:.4f} max_abs_err={err:.3e}")
+            cs = torch.empty((T, B, Hn), device=dev)
+            hs = lstm_scan(xw, wh, b, cs_out=cs)
+            dhs = torch.randn((T, B, Hn), generator=gen, device=dev)
+            big = Hn * B >= 512 * 4096
+            ms = cuda_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs),
+                         runs=3 if big else 10)
+            by_kernel = profiled_ms(torch, lambda: lstm_scan_backward(xw, wh, b, hs, cs, dhs),
+                                    runs=3 if big else 10)
+            device_ms = sum(v for k, v in by_kernel.items() if "lstm_bwd" in k)
+            log(f"[steps] lstm_bwd alone H={Hn} B={B:5d}: kernel_ms={ms:.4f} "
+                f"device_ms={device_ms:.4f}")
+
+
+def flash_loss_steps(root: str) -> int:
+    """``--flash-loss-steps ROOT``: in the tree at ROOT, profiled windows of
+    20 LSTM-64 and 20 attention train steps (device launches a step and
+    device ms by kernel), the loss's forward and backward alone at the
+    train shape, then that tree's flash_fwd and mae_clip kernels alone;
+    for comparing two trees in turns on one card."""
+    torch = _tree(root)
+    if torch is None:
+        return 1
+    from tpuflow_torch.core.losses import CLIP_VALUE, mae_clip
+    from tpuflow_torch.kernels import losses as loss_kernels
+    from tpuflow_torch.kernels.attention import flash_attention_forward
+
+    for model_name in ("lstm", "attention"):
+        prof, wall_ms = _profiled_steps(torch, _train_steps(torch, model_name))
+        by_kernel = device_ms_by_kernel(prof)
+        launches = device_launches(prof)
+        log_profiled_steps(model_name, by_kernel, wall_ms)
+        log(f"[steps] {model_name:12s} device launches a step: "
+            f"{sum(launches.values()) / 20:.2f} ("
+            + "; ".join(f"{k[:50]}={n / 20:g}" for k, n in
+                        sorted(launches.items(), key=lambda kv: -kv[1]))
+            + ")")
+
+    # The loss alone at the train shape: host time of forward and backward
+    # (200 calls ending in a synchronise) and what they launch.
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    y = torch.randn((TRAIN_BATCH, T), generator=gen, device=dev)
+    pred = torch.randn((TRAIN_BATCH, T), generator=gen, device=dev).requires_grad_()
+
+    def loss_calls(k):
+        for _ in range(k):
+            torch.autograd.grad(mae_clip(y, pred), pred)
+
+    per_call = []
+    for _ in range(5):
+        loss_calls(20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_calls(200)
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) / 200 * 1e6)
+    prof, _ = _profiled_steps(torch, loss_calls)
+    launches = device_launches(prof)
+    log(f"[steps] loss forward+backward at [{TRAIN_BATCH}, {T}]: host_us_per_call median "
+        f"{statistics.median(per_call):.1f} (runs {', '.join(f'{u:.1f}' for u in per_call)}; "
+        f"200 calls ending in a synchronise); device launches a call "
+        f"{sum(launches.values()) / 20:g} ("
+        + "; ".join(f"{k[:50]}={n / 20:g}" for k, n in launches.items()) + ")")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for BH, Tn, D in FLASH_SHAPES:
+        q, k, v = (torch.randn((BH, Tn, D), generator=gen, device=dev) for _ in range(3))
+        ms = cuda_ms(torch, lambda: flash_attention_forward(q, k, v))
+        device_ms = sum(profiled_ms(torch, lambda: flash_attention_forward(q, k, v)).values())
+        log(f"[steps] flash_fwd alone {(BH, Tn, D)}: kernel_ms={ms:.4f} "
+            f"device_ms={device_ms:.4f}")
+    grad = getattr(loss_kernels, "mae_clip_grad", None)
+    for R, N in MAE_SHAPES:
+        yt, yp = (torch.randn((R, N), generator=gen, device=dev) * 5 for _ in range(2))
+        ms = cuda_ms(torch, lambda: loss_kernels.mae_clip_rows(yt, yp, CLIP_VALUE))
+        by_kernel = profiled_ms(torch, lambda: loss_kernels.mae_clip_rows(yt, yp, CLIP_VALUE))
+        line = (f"[steps] mae_clip alone [{R}, {N}]: kernel_ms={ms:.4f} "
+                f"device_ms={sum(by_kernel.values()):.4f} kernels={len(by_kernel)}")
+        if grad is not None:
+            g = torch.ones((), device=dev)
+            line += (f"; mae_clip_grad kernel_ms="
+                     f"{cuda_ms(torch, lambda: grad(yt, yp, g, CLIP_VALUE)):.4f} device_ms="
+                     f"{sum(profiled_ms(torch, lambda: grad(yt, yp, g, CLIP_VALUE)).values()):.4f}")
+        log(line)
+    return 0
 
 
 def _ring_batch() -> tuple[np.ndarray, np.ndarray]:
@@ -1285,8 +1584,8 @@ def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
         raise AssertionError(f"ring gradients disagree with the flash path: {bad}, "
                              f"loss {loss_err:.2e}, predictions {pred_err:.2e}")
     layers, n = LAYERS["attention"], RING_RANKS
-    want = {**dict.fromkeys(KERNELS, 0), "mae_clip": 1, "ring_round_fwd": layers * n,
-            "ring_round_bwd": layers * n}
+    want = {**dict.fromkeys(KERNELS, 0), "mae_clip": 1, "mae_clip_grad": 1,
+            "ring_round_fwd": layers * n, "ring_round_bwd": layers * n}
     for r in ranks:
         if r["grads"]["launches"] != want:
             raise AssertionError(f"ring rank {r['rank']} launches {r['grads']['launches']} "
@@ -1578,6 +1877,7 @@ def main() -> int:
             ("lstm_fwd", "lstm_fwd", "tpuflow/kernels/lstm.py:68"),
             ("lstm_bwd", "lstm_bwd", "tpuflow/kernels/lstm.py:97"),
             ("mae_clip", "mae_clip", "tpuflow/kernels/losses.py:33"),
+            ("mae_clip_grad", "mae_clip", "tpuflow/kernels/losses.py:99"),
             ("flash_fwd", "flash_fwd", "tpuflow/kernels/attention.py:208"),
             ("flash_dq", "flash_bwd", "tpuflow/kernels/attention.py:255"),
             ("flash_dkv", "flash_bwd", "tpuflow/kernels/attention.py:284"),
@@ -1597,4 +1897,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lstm-steps"]:
         sys.exit(lstm_steps(sys.argv[2]))
+    if sys.argv[1:2] == ["--flash-loss-steps"]:
+        sys.exit(flash_loss_steps(sys.argv[2]))
     sys.exit(main())

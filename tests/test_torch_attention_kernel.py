@@ -238,9 +238,31 @@ def test_cuda_kernels_match_plain_versions(cuda_device, BH, T, D):
     for g, w in zip((dq, dk, dv), want):
         assert _normwise_err(g, w) <= 1e-4
     got_counts = dict(zip(KERNELS, (w.launches - c for w, c in zip(KERNELS.values(), counts))))
-    assert got_counts == {"lstm_fwd": 0, "lstm_bwd": 0, "mae_clip": 0,
+    assert got_counts == {"lstm_fwd": 0, "lstm_bwd": 0, "mae_clip": 0, "mae_clip_grad": 0,
                           "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
                           "ring_round_fwd": 0, "ring_round_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("T", [1, 24, 63, 64, 65])
+def test_cuda_forward_on_both_sides_of_the_window_switch(cuda_device, T, D):
+    """``flash_fwd`` takes windows of up to 64 as whole slices, 256 / (T
+    D/16) of them a block, and longer ones as 64-row tiles on the tensor
+    cores (3xTF32). BH = 257 is a multiple of no slice count a block takes
+    here, so the last block is partial. o and lse within 1e-5 abs of the
+    plain version; a second launch equals the first bitwise."""
+    BH = 257
+    q, k, v = (torch.randn((BH, T, D), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(T + i))
+               for i in range(3))
+    o, lse = flash_attention_forward(q, k, v)
+    o2, lse2 = flash_attention_forward(q, k, v)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o, ref_o, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

@@ -252,3 +252,24 @@ def test_cuda_kernels_take_hidden_4096(cuda_device):
     want = lstm_scan_backward_reference(xw, wh, b, hs_ref, cs_ref, dhs)
     for name, g, w in zip(("dz", "dwh", "db"), got, want):
         assert _normwise_err(g, w) <= CARD_TOL[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [9686, 23170])
+def test_cuda_backward_past_the_shared_memory_tiles(cuda_device, H):
+    """Past H = 9685 the chain's tiles no longer fit in shared memory and
+    live in a scratch in device memory; the backward takes every H up to
+    the forward's 32-bit limit on W_h, 23170 (W_h then holds 8.6 GB), and
+    matches its plain version at the tolerances above."""
+    assert lstm_mod._library("lstm_bwd").tpuflow_lstm_bwd_max_hidden() == 23170
+    gen = torch.Generator(cuda_device).manual_seed(H)
+    xw = torch.randn((2, 2, 4 * H), generator=gen, device=cuda_device)
+    wh = torch.randn((H, 4 * H), generator=gen, device=cuda_device) / H ** 0.5
+    b = torch.randn(4 * H, generator=gen, device=cuda_device) * 0.1
+    dhs = torch.randn((2, 2, H), generator=gen, device=cuda_device)
+    hs, cs = lstm_scan_reference(xw, wh, b)
+    got = lstm_scan_backward(xw, wh, b, hs, cs, dhs)
+    torch.cuda.synchronize()
+    want = lstm_scan_backward_reference(xw, wh, b, hs, cs, dhs)
+    for name, g, w in zip(("dz", "dwh", "db"), got, want):
+        assert _normwise_err(g, w) <= CARD_TOL[name], name

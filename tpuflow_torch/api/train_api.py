@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from tpuflow_torch.data.synthetic import (
 )
 from tpuflow_torch.models import build_model
 from tpuflow_torch.models.registry import MODELS
+from tpuflow_torch.obs.health import HEALTH_OFF, HEALTH_POLICIES
 from tpuflow_torch.parallel.mesh import DATA_AXIS
 from tpuflow_torch.train.loop import FitConfig, FitResult, evaluate, fit
 from tpuflow_torch.train.optim import build_optimizer, wrap_optimizer
@@ -69,7 +70,8 @@ _NOT_PORTED = (
     ("trace_dir", lambda c: c.trace_dir is not None, "item 12 (profiling)"),
     ("metrics_path", lambda c: c.metrics_path is not None, "item 12 (metrics logging)"),
     ("precision", lambda c: c.precision != "f32", "item 6 (bf16 policy)"),
-    ("health", lambda c: c.health not in ("warn", "off", None), "item 12 (numerics watchdog)"),
+    ("health", lambda c: c.health not in HEALTH_POLICIES + HEALTH_OFF,
+     "item 12 (numerics watchdog)"),
 )
 
 
@@ -115,6 +117,10 @@ class TrainReport:
     epoch_program: str = ""
     epoch_program_reason: str = ""
     device: str = ""  # torch.cuda.get_device_name, or "cpu"
+    # The numerics watchdog's anomaly trail, and the recompile summary:
+    # always None in eager PyTorch, which compiles nothing.
+    anomalies: list = field(default_factory=list)
+    recompiles: dict | None = None
 
     def summary(self) -> str:
         lines = [
@@ -128,6 +134,15 @@ class TrainReport:
             beat = "beats" if self.test_mae <= self.gilbert_mae else "trails"
             lines.append(
                 f"Gilbert-baseline MAE: {self.gilbert_mae:.4f} (model {beat} baseline)"
+            )
+        if self.anomalies:
+            kinds: dict[str, int] = {}
+            for a in self.anomalies:
+                kinds[a["kind"]] = kinds.get(a["kind"], 0) + 1
+            lines.append(
+                "Numerics anomalies: "
+                + ", ".join(f"{k}={v}" for k, v in sorted(kinds.items()))
+                + " (numerics watchdog, policy=warn)"
             )
         return "\n".join(lines)
 
@@ -257,6 +272,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             storage_path=config.storage_path if writes else None,
             model_name=config.model,
             verbose=config.verbose,
+            health=config.health,
         ),
         optimizer=spec,
     )
@@ -303,6 +319,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
         epoch_program=program,
         epoch_program_reason=reason,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        anomalies=result.anomalies,
+        recompiles=result.recompiles,
     )
     if config.verbose:
         print(report.summary())

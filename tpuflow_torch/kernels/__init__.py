@@ -17,7 +17,13 @@ from tpuflow_torch.kernels.attention import (
     ring_round_fwd,
     ring_round_fwd_reference,
 )
-from tpuflow_torch.kernels.losses import mae_clip, mae_clip_reference, mae_clip_rows
+from tpuflow_torch.kernels.losses import (
+    mae_clip,
+    mae_clip_grad,
+    mae_clip_grad_reference,
+    mae_clip_reference,
+    mae_clip_rows,
+)
 from tpuflow_torch.kernels.lstm import (
     lstm_scan,
     lstm_scan_backward,
@@ -29,6 +35,7 @@ KERNELS = {
     "lstm_fwd": lstm_scan,
     "lstm_bwd": lstm_scan_backward,
     "mae_clip": mae_clip_rows,
+    "mae_clip_grad": mae_clip_grad,
     "flash_fwd": flash_attention_forward,
     "flash_dq": flash_attention_dq,
     "flash_dkv": flash_attention_dkv,
@@ -50,6 +57,8 @@ __all__ = [
     "lstm_scan_backward_reference",
     "lstm_scan_reference",
     "mae_clip",
+    "mae_clip_grad",
+    "mae_clip_grad_reference",
     "mae_clip_reference",
     "mae_clip_rows",
     "ring_round_bwd",

@@ -100,7 +100,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
         build_log[stem] = {
             "path": path,
             "seconds": seconds,
-            "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln],
+            "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln],
         }
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

@@ -7,9 +7,11 @@ batch axis (the ``models.attention`` convention).
 Kernels, each bound by bytes at the model's windows (T = 24, D = 16) and
 by operations from T of about 150:
 - ``csrc/flash_fwd.cu`` (``flash_fwd``) replaces the Pallas TPU kernel
-  ``_fwd_kernel`` (launched by ``_fwd``): the online softmax over 64-row
-  K/V tiles up to the diagonal, one block per (bh, 64-row q tile), writing
-  ``o`` and ``lse [BH, T]`` f32;
+  ``_fwd_kernel`` (launched by ``_fwd``), writing ``o`` and ``lse [BH, T]``
+  f32: windows of up to 64 as whole (bh) slices, several a block, each
+  row's scores in registers; longer ones as the online softmax over 64-row
+  K/V tiles up to the diagonal, one block per (bh, 64-row q tile), with
+  Q K^T and P V on the tensor cores in 3xTF32 (about f32 accuracy);
 - ``csrc/flash_bwd.cu`` holds ``flash_dq``, which replaces ``_dq_kernel``
   (the same tiling, probabilities recomputed from ``lse``, dq scaled once
   at the end), and ``flash_dkv``, which replaces ``_dkv_kernel`` (one block

@@ -62,9 +62,16 @@
 //   no bank conflicts;
 // - the chain keeps W_h in shared memory where it fits beside its tiles
 //   (H <= 116 at R = 2), else reads it through L2 (__ldg, float4);
-// - the chain's shared memory is the dz tile and the dh and dc carries,
-//   R * 6H floats, which sets the hidden sizes it takes: R = 1 fits up to
-//   H = 9685 (tpuflow_lstm_bwd_max_hidden);
+// - the chain keeps the dz tile and the dh and dc carries, R * 6H floats,
+//   in shared memory while they fit at one row a block (H <= 9685, the
+//   layout every H up to that keeps). Above it they live in a per-call
+//   scratch in device memory that the caller allocates (its size from
+//   tpuflow_lstm_bwd_chain_scratch), one region for each block: a block
+//   reads and writes only its own rows, so __syncthreads orders those
+//   accesses as it does shared memory's, and nothing crosses blocks. The
+//   hidden sizes all three kernels take are then bounded only by indexing
+//   W_h (4 H^2 floats) in 32 bits, as the forward's: H <= 23170
+//   (tpuflow_lstm_bwd_max_hidden);
 // - rows past the batch edge carry zeros and write nothing.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power
@@ -78,6 +85,7 @@
 // ms at B=20, H=2048, where ten blocks each re-read a 67 MB W_h every step.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "lstm_common.cuh"
@@ -156,17 +164,26 @@ __device__ __forceinline__ float4 load_w4(const float* p) {
   }
 }
 
+// A chain block's region of the scratch (kGlobalTiles): its R rows of 6H
+// floats, rounded up to whole float4s so that every region's dz tile is
+// 16-byte aligned.
+__host__ __device__ inline int64_t chain_region(int R, int H) {
+  return ((int64_t)R * 6 * H + 3) / 4 * 4;
+}
+
 // Kernel 2: the reverse-time chain over a tile of R batch rows. dxw holds
-// the gates on entry and dz on exit.
-template <int R, int U, bool kSharedW>
+// the gates on entry and dz on exit. The dz tile and the carries are in
+// shared memory, or with kGlobalTiles in this block's region of scratch.
+template <int R, int U, bool kSharedW, bool kGlobalTiles>
 __global__ void __launch_bounds__(kChainThreads)
 lstm_bwd_chain_kernel(const float* __restrict__ wh, const float* __restrict__ cs,
                       const float* __restrict__ dhs, float* __restrict__ dxw,
-                      int T, int B, int H) {
+                      float* scratch, int T, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
   float* w_s = smem;                              // [H, 4H] if kSharedW
-  float* dz_s = smem + (kSharedW ? H * H4 : 0);   // [R, 4H]
+  float* dz_s = kGlobalTiles ? scratch + blockIdx.x * chain_region(R, H)
+                             : smem + (kSharedW ? H * H4 : 0);  // [R, 4H]
   float* dh_s = dz_s + R * H4;                    // [R, H] dh carry
   float* dc_s = dh_s + R * H;                     // [R, H] dc carry
   const float* w_src = kSharedW ? w_s : wh;
@@ -363,46 +380,63 @@ size_t chain_smem(int H, int R, bool shared_w) {
   return sizeof(float) * ((shared_w ? (size_t)H * H4 : 0) + (size_t)R * (H4 + 2 * (size_t)H));
 }
 
-// Rows a chain block: the largest R of 16, 8, 4, 2, 1 whose tiles fit and
+// Whether the chain's tiles fit in shared memory at one row a block:
+// H <= 9685. Above it they go to the scratch.
+bool tiles_fit(int H) { return chain_smem(H, 1, false) <= kMaxSharedBytes; }
+
+// Rows a chain block: the largest R of 16, 8, 4, 2, 1 whose tiles fit (in
+// shared memory where tiles_fit, else in the scratch, where any R does) and
 // whose grid has at least min(132, ceil(B / 2)) blocks (so B = 20 runs on
-// 10 blocks of 2 rows), and no larger than B needs. 0 when none fits.
+// 10 blocks of 2 rows), and no larger than B needs.
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 int chain_rows(int B, int H) {
+  const bool in_shared = tiles_fit(H);
   const int64_t half = ceil_div(B, 2);
   const int64_t want = half < kSMs ? half : kSMs;
   for (int R = kMaxChainRows; R >= 1; R /= 2) {
-    if (chain_smem(H, R, false) > kMaxSharedBytes) continue;
+    if (in_shared && chain_smem(H, R, false) > kMaxSharedBytes) continue;
     if (R > 1 && R / 2 >= B) continue;
     if (R > 1 && ceil_div(B, R) < want) continue;
     return R;
   }
-  return chain_smem(H, 1, false) <= kMaxSharedBytes ? 1 : 0;
+  return 1;
 }
 
-// The largest H whose chain tiles fit at one row a block.
+// The largest H whose W_h (4 H^2 floats) is indexed in 32 bits, as in
+// lstm_fwd.cu.
 int max_hidden() {
-  int h = (int)(kMaxSharedBytes / (sizeof(float) * 6));
-  while (h > 0 && chain_smem(h, 1, false) > kMaxSharedBytes) --h;
-  return h;
+  static const int limit = [] {
+    int h = 1;
+    while (4 * (int64_t)(h + 1) * (h + 1) <= INT_MAX) ++h;
+    return h;
+  }();
+  return limit;
 }
 
 bool supported(int H) { return H > 0 && H <= max_hidden(); }
 
 template <int R>
 int launch_chain(const float* wh, const float* cs, const float* dhs, float* dxw,
-                 int T, int B, int H, cudaStream_t stream) {
-  const bool shared_w = chain_smem(H, R, true) <= kMaxSharedBytes;
-  const size_t smem = chain_smem(H, R, shared_w);
+                 float* scratch, int T, int B, int H, cudaStream_t stream) {
   // Two units a lane where the rows are many: each dz value read from
   // shared memory then feeds two products.
   constexpr int U = R >= 8 ? 4 : (R == 4 ? 2 : 1);
-  auto kernel = shared_w ? lstm_bwd_chain_kernel<R, U, true> : lstm_bwd_chain_kernel<R, U, false>;
+  const dim3 grid((unsigned)((B + R - 1) / R));
+  if (!tiles_fit(H)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    lstm_bwd_chain_kernel<R, U, false, true>
+        <<<grid, kChainThreads, 0, stream>>>(wh, cs, dhs, dxw, scratch, T, B, H);
+    return (int)cudaGetLastError();
+  }
+  const bool shared_w = chain_smem(H, R, true) <= kMaxSharedBytes;
+  const size_t smem = chain_smem(H, R, shared_w);
+  auto kernel = shared_w ? lstm_bwd_chain_kernel<R, U, true, false>
+                         : lstm_bwd_chain_kernel<R, U, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((B + R - 1) / R));
-  kernel<<<grid, kChainThreads, smem, stream>>>(wh, cs, dhs, dxw, T, B, H);
+  kernel<<<grid, kChainThreads, smem, stream>>>(wh, cs, dhs, dxw, nullptr, T, B, H);
   return (int)cudaGetLastError();
 }
 
@@ -447,18 +481,28 @@ int tpuflow_lstm_bwd_gates(const float* xw, const float* wh, const float* b,
   return (int)cudaGetLastError();
 }
 
-// Kernel 2: dxw holds the gates on entry and dz on exit.
+// Floats of scratch the chain needs at (B, H): 0 where its tiles fit in
+// shared memory (H <= 9685), else a region of R rows of 6H for each block.
+int64_t tpuflow_lstm_bwd_chain_scratch(int B, int H) {
+  if (B <= 0 || !supported(H) || tiles_fit(H)) return 0;
+  const int R = chain_rows(B, H);
+  return ceil_div(B, R) * chain_region(R, H);
+}
+
+// Kernel 2: dxw holds the gates on entry and dz on exit; scratch holds
+// tpuflow_lstm_bwd_chain_scratch(B, H) floats (null when that is 0).
 int tpuflow_lstm_bwd_chain(const float* wh, const float* cs, const float* dhs,
-                           float* dxw, int T, int B, int H, void* stream) {
+                           float* dxw, float* scratch, int T, int B, int H,
+                           void* stream) {
   if (T <= 0 || B <= 0) return 0;
   const int R = supported(H) ? chain_rows(B, H) : 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (R) {
-    case 16: return launch_chain<16>(wh, cs, dhs, dxw, T, B, H, st);
-    case 8: return launch_chain<8>(wh, cs, dhs, dxw, T, B, H, st);
-    case 4: return launch_chain<4>(wh, cs, dhs, dxw, T, B, H, st);
-    case 2: return launch_chain<2>(wh, cs, dhs, dxw, T, B, H, st);
-    case 1: return launch_chain<1>(wh, cs, dhs, dxw, T, B, H, st);
+    case 16: return launch_chain<16>(wh, cs, dhs, dxw, scratch, T, B, H, st);
+    case 8: return launch_chain<8>(wh, cs, dhs, dxw, scratch, T, B, H, st);
+    case 4: return launch_chain<4>(wh, cs, dhs, dxw, scratch, T, B, H, st);
+    case 2: return launch_chain<2>(wh, cs, dhs, dxw, scratch, T, B, H, st);
+    case 1: return launch_chain<1>(wh, cs, dhs, dxw, scratch, T, B, H, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

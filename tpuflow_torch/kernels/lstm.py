@@ -31,10 +31,11 @@ Kernels:
   ``lstm_scan_backward_reference``.
 
 The kernels state the largest hidden size they take
-(``tpuflow_lstm_{fwd,bwd}_max_hidden``: 23170 forward, where ``W_h``
-stops being addressable in 32 bits; 9685 backward, where its chain's
-shared-memory tiles stop fitting); the wrappers raise beyond it, naming the
-limit.
+(``tpuflow_lstm_{fwd,bwd}_max_hidden``: 23170 for both, where ``W_h``
+stops being addressable in 32 bits); the wrappers raise beyond it, naming
+the limit. Above H = 9685 the backward's chain keeps its per-block tiles in
+a scratch in device memory, which ``_chain_kernel`` allocates, in place of
+shared memory.
 
 ``lstm_scan`` is differentiable: when gradients are needed it runs as a
 ``torch.autograd.Function`` whose forward keeps the cell states and whose
@@ -111,13 +112,15 @@ def _library(stem: str) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         else:
-            for name, n_ptrs, n_ints in (("gates", 5, 3), ("chain", 4, 3), ("wgrad", 4, 4)):
+            for name, n_ptrs, n_ints in (("gates", 5, 3), ("chain", 5, 3), ("wgrad", 4, 4)):
                 fn = getattr(lib, f"tpuflow_lstm_bwd_{name}")
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
                     ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             lib.tpuflow_lstm_bwd_splits.argtypes = [ctypes.c_int] * 3
             lib.tpuflow_lstm_bwd_splits.restype = ctypes.c_int
+            lib.tpuflow_lstm_bwd_chain_scratch.argtypes = [ctypes.c_int] * 2
+            lib.tpuflow_lstm_bwd_chain_scratch.restype = ctypes.c_int64
         max_hidden = getattr(lib, f"tpuflow_{stem}_max_hidden")
         max_hidden.argtypes = []
         max_hidden.restype = ctypes.c_int
@@ -128,7 +131,7 @@ def _library(stem: str) -> ctypes.CDLL:
 # What sets each kernel's largest hidden size.
 _LIMITED_BY = {
     "lstm_fwd": "the most whose W_h it indexes in 32 bits",
-    "lstm_bwd": "the most its per-block tiles fit in shared memory",
+    "lstm_bwd": "the most whose W_h it indexes in 32 bits",
 }
 
 
@@ -189,9 +192,14 @@ def _gates_kernel(xw, wh, b, hs, gates) -> None:
 
 
 def _chain_kernel(wh, cs, dhs, dxw) -> None:
+    """Launch the chain; past the hidden size whose tiles fit in shared
+    memory, first allocate the scratch that holds them."""
     if wh.data_ptr() % 16:
         raise ValueError("lstm_bwd_chain reads W_h as float4: it must be 16-byte aligned")
-    _launch_bwd("chain", cs, wh, cs, dhs, dxw, *cs.shape)
+    T, B, H = cs.shape
+    floats = _library("lstm_bwd").tpuflow_lstm_bwd_chain_scratch(B, H)
+    scratch = torch.empty(floats, dtype=torch.float32, device=cs.device) if floats else None
+    _launch_bwd("chain", cs, wh, cs, dhs, dxw, scratch, T, B, H)
 
 
 def _wgrad_kernel(hs, dz, dwh_parts, db_parts) -> None:
@@ -431,7 +439,13 @@ def lstm_bwd_wgrad(hs, dz) -> tuple[torch.Tensor, torch.Tensor]:
     dwh_parts = torch.empty((S, H, 4 * H), dtype=torch.float32, device=dz.device)
     db_parts = torch.empty((S, 4 * H), dtype=torch.float32, device=dz.device)
     _wgrad_kernel(hs, dz, dwh_parts, db_parts)
-    return dwh_parts.sum(dim=0), db_parts.sum(dim=0)
+    return _sum_parts(dwh_parts), _sum_parts(db_parts)
+
+
+def _sum_parts(parts: torch.Tensor) -> torch.Tensor:
+    """The S partials summed in order; one partial is the sum itself (at
+    the largest H one [H, 4H] partial is 8.6 GB, not copied again)."""
+    return parts[0] if parts.shape[0] == 1 else parts.sum(dim=0)
 
 
 def _forward(xw, wh, b, cs_out):
@@ -534,7 +548,7 @@ def lstm_scan_backward(
     db_parts = torch.empty((S, 4 * H), dtype=torch.float32, device=xw.device)
     _bwd_kernel(xw, wh, b, hs, cs, dhs, dxw, dwh_parts, db_parts)
     _count(lstm_scan_backward)
-    return dxw, dwh_parts.sum(dim=0), db_parts.sum(dim=0)
+    return dxw, _sum_parts(dwh_parts), _sum_parts(db_parts)
 
 
 lstm_scan.launches = 0

@@ -4,15 +4,18 @@ Counterpart of the per-batch program of ``tpuflow/train/loop.py``
 (``loop.py:493-531`` and ``:561-591``): up to ``max_epochs`` epochs of
 minibatch steps over ``batches(train_ds, batch, seed=seed + epoch)``, the
 losses read back once per epoch, validation, early stopping on val loss
-with patience, and save-best into the store layout the port's ``Predictor``
-and the JAX package's ``StoreCheckpointer`` both read.
+with patience, save-best into the store layout the port's ``Predictor``
+and the JAX package's ``StoreCheckpointer`` both read, and the numerics
+watchdog's ``warn`` policy after each epoch (``tpuflow_torch/obs/health.py``).
 
 The datasets are copied to the model's device once, and each epoch's batch
 order once per epoch, so the batch loop moves no host data and never waits
 for the card. What the JAX loop does beyond this (run-state checkpoints and
-resume, the numerics watchdog, recompile detection, the autotuner, fault
-drills, metrics files, profiler traces) is not ported yet (ROADMAP.md
-Queue 1 items 6 and 12).
+resume, the watchdog's ``abort`` and ``halve_lr`` policies, the autotuner,
+fault drills, metrics files, profiler traces) is not ported yet (ROADMAP.md
+Queue 1 items 6 and 12). Eager PyTorch compiles nothing, so there is no
+recompile to detect: ``FitResult.recompiles`` is always None, as the JAX
+detector reports when no recompile happened.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from tpuflow_torch.convert import model_leaves
 from tpuflow_torch.core.losses import mae_clip
 from tpuflow_torch.data.pipeline import ArrayDataset, epoch_order
+from tpuflow_torch.obs.health import HEALTH_OFF, NumericsWatchdog
 from tpuflow_torch.storage.checkpoint import StoreCheckpointer
 from tpuflow_torch.train.callbacks import EarlyStopping
 from tpuflow_torch.train.optim import OptimizerSpec, keras_sgd
@@ -44,6 +48,8 @@ class FitConfig:
     storage_path: str | None = None  # enables save-best checkpointing
     model_name: str = "model"
     verbose: bool = True
+    # Numerics watchdog policy: "warn", or one of HEALTH_OFF.
+    health: str | None = "warn"
 
 
 @dataclass
@@ -54,6 +60,10 @@ class FitResult:
     best_val_loss: float = float("inf")
     epochs_ran: int = 0
     samples_per_sec: float = 0.0
+    # The watchdog's trail ({"epoch", "kind", "value"} dicts; empty when
+    # healthy), and the recompile summary: always None in eager PyTorch.
+    anomalies: list = field(default_factory=list)
+    recompiles: dict | None = None
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -81,6 +91,9 @@ def fit(
         if config.storage_path else None
     )
     stopper = EarlyStopping(patience=config.patience)
+    watchdog = None
+    if config.health not in HEALTH_OFF:
+        watchdog = NumericsWatchdog(model_name=config.model_name, verbose=config.verbose)
     result = FitResult(model=model)
     samples_seen = 0
     t0 = time.monotonic()
@@ -88,12 +101,14 @@ def fit(
         te = time.monotonic()
         order = epoch_order(train_ds.n, config.batch_size, seed=config.seed + epoch)
         idx = torch.from_numpy(order).to(device)
-        losses = []
+        losses, grad_norms = [], []
         for s in range(0, len(order), config.batch_size):
             rows = idx[s : s + config.batch_size]
             # Device tensors only inside the batch loop: reading one back
             # here would wait for the card once per step.
-            losses.append(train_step(x_train[rows], y_train[rows])["loss"])
+            out = train_step(x_train[rows], y_train[rows])
+            losses.append(out["loss"])
+            grad_norms.append(out["grad_norm"])
         if not losses:
             raise ValueError(
                 f"epoch {epoch} yielded zero batch_size={config.batch_size} "
@@ -101,7 +116,13 @@ def fit(
                 "(split smaller than one batch?)"
             )
         samples_seen += len(order)
-        train_loss = float(np.mean(torch.stack(losses).cpu().tolist()))
+        # The epoch's one read-back: its losses and gradient norms together.
+        epoch_losses, epoch_grads = torch.stack(
+            [torch.stack(losses), torch.stack(grad_norms)]).cpu().tolist()
+        train_loss = float(np.mean(epoch_losses))
+        if watchdog is not None:
+            watchdog.observe_epoch(epoch, epoch_losses, epoch_grads)
+            result.anomalies = watchdog.anomalies
         val = _eval_dataset(eval_step, val_ds, config.batch_size, device)
         epoch_time = time.monotonic() - te
         result.history.append(
