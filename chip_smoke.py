@@ -25,8 +25,10 @@ Phases, in order; any failure exits non-zero before the result line:
    profiled device time. ``mae_clip_grad`` must equal its plain version bit
    for bit. ``lstm_fwd`` (one persistent kernel with a barrier across the
    grid between steps), ``mae_clip`` (whose wide rows are summed by the
-   block that draws the last ticket), ``mae_clip_grad`` and ``flash_fwd``
-   must also give bitwise the same result in 200 launches back to back.
+   block that draws the last ticket), ``mae_clip_grad``, ``flash_fwd``,
+   ``flash_dq`` and ``flash_dkv`` must also give bitwise the same result in
+   200 launches back to back, and wide-row ``mae_clip`` calls on two
+   streams at once must each match their plain version.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -71,9 +73,10 @@ once per tree, in turns, on the same card).
 ROOT, profiled windows of 20 LSTM-64 and 20 attention train steps (device
 kernels launched a step, device ms by kernel), the loss's forward and
 backward alone (host microseconds a call, kernels a call), then that
-tree's ``flash_fwd`` at ``FLASH_SHAPES`` and ``mae_clip`` (and
-``mae_clip_grad`` where the tree has it) at their shapes alone, by CUDA
-events and profiled device time; for comparing two trees in turns.
+tree's ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at ``FLASH_SHAPES``
+and ``mae_clip`` (and ``mae_clip_grad`` where the tree has it) at their
+shapes alone, by CUDA events and profiled device time; for comparing two
+trees in turns.
 """
 
 from __future__ import annotations
@@ -125,6 +128,9 @@ BEYOND_SHARED_HIDDEN = 12000
 # mae_clip's shapes: the train loss at batch 20, the eval (one row an
 # example), and a row of the serving chunk's size (several blocks a row).
 MAE_SHAPES = ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T))
+# Wide-row mae_clip calls on two streams at once, (shape, calls a stream):
+# rows of 24 and of 1024 blocks.
+MAE_STREAM_SHAPES = (((3, 4096 * T), 40), ((3, 4096 * 1024), 8))
 # lstm_fwd launches back to back that must equal the first bitwise, and the
 # (B, H) it runs them at: LSTM-64's training shape, and a ragged batch at
 # a width whose h rows are read 16 bytes at a time over several tiles.
@@ -277,17 +283,37 @@ def ring_bwd_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
     return _bound(nbytes, 10 * D * BH * pairs)
 
 
+def _tc_bound(nbytes: float, ops_per_pair: float, pairs: int) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate, three TF32 products for each
+    f32 operation (3xTF32) over the TF32 rate, and one exponential a pair
+    over the SFUs' rate: (ms, what sets it)."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "tensor cores": 3 * ops_per_pair * pairs / TF32_FLOP_PER_S,
+             "exponentials": pairs / SFU_EXP_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def flash_fwd_tc_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
     """Least time for flash_fwd on the tensor cores in 3xTF32: the larger of
     its bytes over the HBM rate, three times its 4*D operations a causal
     pair over the TF32 rate, and one exponential a causal pair over the
     SFUs' rate."""
-    pairs = BH * causal_pairs(Tn)
-    times = {"bytes": 4 * (4 * BH * Tn * D + BH * Tn) / HBM_BYTES_PER_S,
-             "tensor cores": 3 * 4 * D * pairs / TF32_FLOP_PER_S,
-             "exponentials": pairs / SFU_EXP_PER_S}
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by
+    return _tc_bound(4 * (4 * BH * Tn * D + BH * Tn), 4 * D, BH * causal_pairs(Tn))
+
+
+def flash_dq_tc_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_dq on the tensor cores in 3xTF32: flash_dq_bound's
+    bytes, three times its 6*D operations a causal pair, one exponential a
+    causal pair."""
+    return _tc_bound(4 * (5 * BH * Tn * D + 2 * BH * Tn), 6 * D, BH * causal_pairs(Tn))
+
+
+def flash_dkv_tc_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
+    """Least time for flash_dkv on the tensor cores in 3xTF32: flash_dkv_bound's
+    bytes, three times its 8*D operations a causal pair, one exponential a
+    causal pair."""
+    return _tc_bound(4 * (6 * BH * Tn * D + 2 * BH * Tn), 8 * D, BH * causal_pairs(Tn))
 
 
 def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
@@ -357,6 +383,7 @@ def phase_kernels(torch) -> dict:
     kernel_lstm_wide(torch)
     records.update(kernel_flash(torch))
     kernel_repeat(torch)
+    kernel_mae_clip_streams(torch)
     records.update(kernel_ring(torch))
     return records
 
@@ -745,12 +772,13 @@ def kernel_flash(torch) -> dict:
             + f"; SDPA fwd max abs err vs plain {lib_err:.3e}, sdpa_fwd_ms={sdpa_fwd:.4f} "
             f"sdpa_bwd_ms={sdpa_bwd:.4f} (dq, dk, dv together, on a saved forward) "
             f"sdpa_fwd_bwd_ms={sdpa_both:.4f}")
+        tc_bounds = {"flash_fwd": flash_fwd_tc_bound(BH, Tn, D),
+                     "flash_dq": flash_dq_tc_bound(BH, Tn, D),
+                     "flash_dkv": flash_dkv_tc_bound(BH, Tn, D)}
         for name in ms:
             bound_ms, bound_by = bounds[name]
-            extra = ""
-            if name == "flash_fwd":
-                tc_ms, tc_by = flash_fwd_tc_bound(BH, Tn, D)
-                extra = f"; tensor-core/SFU bound_ms={tc_ms:.6f} ({tc_by})"
+            tc_ms, tc_by = tc_bounds[name]
+            extra = f"; tensor-core/SFU bound_ms={tc_ms:.6f} ({tc_by})"
             log(f"[kernel]   {name:9s} max_abs_err={errs[name]:.3e} kernel_ms={ms[name]:.4f} "
                 f"plain_ms={plain_ms[name]:.4f} library_ms={library_ms[name]:.4f} "
                 f"bound_ms={bound_ms:.6f} ({bound_by}){extra}")
@@ -935,11 +963,17 @@ def kernel_mae_clip(torch) -> dict:
 
 def kernel_repeat(torch) -> None:
     """REPEAT_LAUNCHES launches back to back of mae_clip and mae_clip_grad
-    (at each of MAE_SHAPES: the wide row's last block sums by ticket) and of
-    flash_fwd (at each of FLASH_SHAPES) must equal the first bitwise.
-    Raises on a mismatch."""
+    (at each of MAE_SHAPES: the wide row's last block sums by ticket), of
+    flash_fwd, and of flash_dq and flash_dkv (at each of FLASH_SHAPES, on
+    the forward's lse and delta) must equal the first bitwise. Each launch
+    is compared with the first on the card as it goes (no synchronise in
+    between). Raises on a mismatch."""
     from tpuflow_torch.core.losses import CLIP_VALUE
-    from tpuflow_torch.kernels.attention import flash_attention_forward
+    from tpuflow_torch.kernels.attention import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_forward,
+    )
     from tpuflow_torch.kernels.losses import mae_clip_grad, mae_clip_rows
 
     dev = torch.device("cuda")
@@ -954,17 +988,61 @@ def kernel_repeat(torch) -> None:
                lambda qkv=[torch.randn((BH, Tn, D), generator=gen, device=dev)
                            for _ in range(3)]: flash_attention_forward(*qkv))
               for BH, Tn, D in FLASH_SHAPES]
+    for BH, Tn, D in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((BH, Tn, D), generator=gen, device=dev) for _ in range(4))
+        o, lse = flash_attention_forward(q, k, v)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        cases += [(f"flash_dq {(BH, Tn, D)}", lambda a=args: (flash_attention_dq(*a),)),
+                  (f"flash_dkv {(BH, Tn, D)}", lambda a=args: flash_attention_dkv(*a))]
     for what, fn in cases:
         first = fn()
-        runs = [fn() for _ in range(REPEAT_LAUNCHES)]
+        differs = []
+        for _ in range(REPEAT_LAUNCHES):
+            out = fn()
+            differs.append(torch.stack([torch.ne(a, b).any() for a, b in zip(out, first)]).any())
         torch.cuda.synchronize()
-        bad = [i for i, out in enumerate(runs)
-               if not all(torch.equal(a, b) for a, b in zip(out, first))]
+        bad = [i for i, d in enumerate(differs) if d.item()]
         if bad:
             raise AssertionError(f"{what}: launches {bad[:10]} of {REPEAT_LAUNCHES} differ "
                                  "from the first")
         log(f"[kernel] {what}: {REPEAT_LAUNCHES} launches back to back equal the first "
             "bitwise")
+
+
+def kernel_mae_clip_streams(torch) -> None:
+    """Wide-row mae_clip calls (MAE_STREAM_SHAPES, each call on other inputs)
+    launched alternately on two streams with no synchronise in between,
+    both streams first held behind a sleep kernel so that their calls run
+    at once: each call's means must match its plain version (MAE_RTOL) and
+    equal bitwise the same call made alone. A call's ticket counters live
+    in its own partials. Raises on a mismatch."""
+    from tpuflow_torch.core.losses import CLIP_VALUE
+    from tpuflow_torch.kernels.losses import mae_clip_reference, mae_clip_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for shape, rounds in MAE_STREAM_SHAPES:
+        calls = [tuple(torch.randn(shape, generator=gen, device=dev) * 5 for _ in range(2))
+                 for _ in range(2 * rounds)]
+        torch.cuda.synchronize()
+        got = [None] * len(calls)
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        for i, (yt, yp) in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                got[i] = mae_clip_rows(yt, yp, CLIP_VALUE)
+        torch.cuda.synchronize()
+        for i, (yt, yp) in enumerate(calls):
+            want = mae_clip_reference(yt, yp, CLIP_VALUE)
+            if not (torch.allclose(got[i], want, atol=0, rtol=MAE_RTOL)
+                    and torch.equal(got[i], mae_clip_rows(yt, yp, CLIP_VALUE))):
+                raise AssertionError(
+                    f"mae_clip on two streams at {list(shape)}: call {i} of {len(calls)} "
+                    f"gave {got[i].tolist()}, its plain version {want.tolist()}")
+        log(f"[kernel] mae_clip {list(shape)}: {rounds} calls on each of two streams at "
+            "once match their plain versions and equal each call made alone")
 
 
 def expected_train_launches(config) -> tuple[dict, dict]:
@@ -1284,14 +1362,18 @@ def flash_loss_steps(root: str) -> int:
     """``--flash-loss-steps ROOT``: in the tree at ROOT, profiled windows of
     20 LSTM-64 and 20 attention train steps (device launches a step and
     device ms by kernel), the loss's forward and backward alone at the
-    train shape, then that tree's flash_fwd and mae_clip kernels alone;
-    for comparing two trees in turns on one card."""
+    train shape, then that tree's flash_fwd, flash_dq, flash_dkv and
+    mae_clip kernels alone; for comparing two trees in turns on one card."""
     torch = _tree(root)
     if torch is None:
         return 1
     from tpuflow_torch.core.losses import CLIP_VALUE, mae_clip
     from tpuflow_torch.kernels import losses as loss_kernels
-    from tpuflow_torch.kernels.attention import flash_attention_forward
+    from tpuflow_torch.kernels.attention import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_forward,
+    )
 
     for model_name in ("lstm", "attention"):
         prof, wall_ms = _profiled_steps(torch, _train_steps(torch, model_name))
@@ -1333,11 +1415,26 @@ def flash_loss_steps(root: str) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     for BH, Tn, D in FLASH_SHAPES:
-        q, k, v = (torch.randn((BH, Tn, D), generator=gen, device=dev) for _ in range(3))
+        q, k, v, do = (torch.randn((BH, Tn, D), generator=gen, device=dev) for _ in range(4))
         ms = cuda_ms(torch, lambda: flash_attention_forward(q, k, v))
         device_ms = sum(profiled_ms(torch, lambda: flash_attention_forward(q, k, v)).values())
         log(f"[steps] flash_fwd alone {(BH, Tn, D)}: kernel_ms={ms:.4f} "
             f"device_ms={device_ms:.4f}")
+        # The backward pair alone, on the forward's lse and delta: device
+        # time as the median of three profiler windows of 20 calls (a window
+        # can drop kernels, PERF.md section 7), with the kernels each saw.
+        o, lse = flash_attention_forward(q, k, v)
+        delta = (do * o).sum(-1)
+        for name, fn in (
+                ("flash_dq", lambda: flash_attention_dq(q, k, v, do, lse, delta)),
+                ("flash_dkv", lambda: flash_attention_dkv(q, k, v, do, lse, delta))):
+            ms = cuda_ms(torch, fn)
+            windows = [profiled_ms(torch, fn, runs=20) for _ in range(3)]
+            device = [sum(w.values()) for w in windows]
+            log(f"[steps] {name} alone {(BH, Tn, D)}: kernel_ms={ms:.4f} "
+                f"device_ms={statistics.median(device):.4f} (windows "
+                + ", ".join(f"{d:.4f}" for d in device) + "; kernels "
+                + ", ".join(str(len(w)) for w in windows) + ")")
     grad = getattr(loss_kernels, "mae_clip_grad", None)
     for R, N in MAE_SHAPES:
         yt, yp = (torch.randn((R, N), generator=gen, device=dev) * 5 for _ in range(2))

@@ -85,6 +85,32 @@ def test_gradients_match_jax_grad(monkeypatch, T):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("T", [24, 65, 130])
+def test_gradients_at_the_kernel_tile_match_jax_grad(monkeypatch, T):
+    """The port's backward on the CPU (``flash_attention_backward``: the
+    plain versions of ``flash_dq`` and ``flash_dkv``, tiled by the CUDA
+    kernels' 64 rows) against ``jax.grad`` through the Pallas custom VJP
+    (interpret mode, 64-row blocks too). T = 24 is one short window; 65
+    and 130 cross the kernels' T = 64 switch, with a ragged last tile.
+    BH = 2, D = 16 (the model's head dim); GRAD_ATOL, as above."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpuflow.kernels import flash_attention as jax_flash_attention
+
+    monkeypatch.setenv("TPUFLOW_FLASH_BLOCK", str(att.BLOCK))
+    q, k, v = _qkv(2, T, 16, seed=70 + T)
+    w = np.random.default_rng(T + 1).standard_normal((2, T, 16)).astype(np.float32)
+    want = jax.grad(
+        lambda *a: jnp.sum(jax_flash_attention(*a) * w), argnums=(0, 1, 2)
+    )(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = _torch(q, k, v)
+    o, lse = flash_attention_forward(qt, kt, vt)
+    got = flash_attention_backward(qt, kt, vt, o, lse, torch.from_numpy(w))
+    for g, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), atol=GRAD_ATOL, err_msg=name)
+
+
 @pytest.mark.parametrize("T,block", [(24, 8), (40, 8), (37, 16), (20, 64), (1, 8)])
 def test_tiled_plain_versions_match_full_attention(T, block):
     """The tiled plain versions (causal skip, ragged last tile) against the
@@ -280,3 +306,38 @@ def test_cuda_autograd_matches_full_attention(cuda_device):
         assert _normwise_err(got.grad, w.grad) <= 1e-4
     with pytest.raises(ValueError, match="got D=24"):
         flash_attention(*(torch.zeros((2, 8, 24), device=cuda_device) for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 24, 63, 64, 65, 130])
+def test_cuda_backward_on_both_sides_of_the_window_switch(cuda_device, T, D):
+    """``flash_dq`` and ``flash_dkv`` take windows of up to 64 as whole
+    slices, several a block (BH = 257 leaves the last block partial), and
+    longer ones as 64-row tiles on the tensor cores in 3xTF32 (T = 65 and
+    130: a ragged last tile). dq, dk and dv normwise within 1e-4 of the
+    plain versions on the same lse and delta (sums over up to T pairs in
+    another order); a second launch equals the first bitwise.
+
+    At T = 1 a row's softmax has one key, so dq and dk are exactly zero
+    (dS = P (dP - delta) with dP = delta = do . v), and both the kernels
+    and the plain versions give only f32 rounding of that zero (dP and
+    delta summed in other orders); there they are held to the exact zero
+    within 1e-5 absolute, dv normwise as everywhere."""
+    BH = 257
+    q, k, v, do = (torch.randn((BH, T, D), device=cuda_device,
+                               generator=torch.Generator(cuda_device).manual_seed(T + D + i))
+                   for i in range(4))
+    o, lse = flash_attention_forward(q, k, v)
+    delta = (do * o).sum(-1)
+    runs = [(flash_attention_dq(q, k, v, do, lse, delta),
+             *flash_attention_dkv(q, k, v, do, lse, delta)) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = (flash_dq_reference(q, k, v, do, lse, delta),
+            *flash_dkv_reference(q, k, v, do, lse, delta))
+    for g, w, name in zip(runs[0], want, ("dq", "dk", "dv")):
+        if T == 1 and name != "dv":
+            assert g.abs().max().item() <= 1e-5 and w.abs().max().item() <= 1e-5, name
+        else:
+            assert _normwise_err(g, w) <= 1e-4, name
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

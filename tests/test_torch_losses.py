@@ -191,6 +191,41 @@ def test_card_path_launches_one_kernel_each_way(monkeypatch):
     assert KERNELS["mae_clip_grad"] is mae_clip_grad
 
 
+def test_card_path_wide_rows_get_zeroed_ticket_counters(monkeypatch):
+    """A row wider than one block (``tpuflow_mae_clip_chunks`` faked to
+    return 5) hands the kernel partials of 5 + 1 columns a row, the last
+    column the row's ticket counter, zero at the launch; a narrow row (one
+    chunk) hands it no partials. Each call is exactly one launch of the
+    kernel."""
+    seen = []
+
+    def fake_launch(entry, what, *args):
+        yt, yp, partials, means = [a for a in args if torch.is_tensor(a)]
+        seen.append((entry, partials.clone()))
+        means.copy_(mae_clip_reference(yt, yp, args[-1]))
+
+    chunks = {"n": 5}
+    monkeypatch.setattr(losses_mod, "_runs_plain", lambda t: False)
+    monkeypatch.setattr(losses_mod, "_launch", fake_launch)
+    monkeypatch.setattr(losses_mod, "_library", lambda: types.SimpleNamespace(
+        tpuflow_mae_clip_chunks=lambda N: chunks["n"]))
+    yt, yp = (torch.from_numpy(a) for a in _pair((3, 40), seed=13))
+    launches = mae_clip_rows.launches
+    wide = mae_clip_rows(yt, yp, CLIP_VALUE)
+    assert mae_clip_rows.launches == launches + 1
+    chunks["n"] = 1
+    narrow = mae_clip_rows(yt, yp, CLIP_VALUE)
+    assert mae_clip_rows.launches == launches + 2
+    assert [entry for entry, _ in seen] == ["tpuflow_mae_clip_means_f32"] * 2
+    (_, wide_partials), (_, narrow_partials) = seen
+    assert wide_partials.shape == (3, 6) and wide_partials.dtype == torch.float32
+    assert torch.count_nonzero(wide_partials[:, -1]) == 0
+    assert narrow_partials.numel() == 0
+    want = mae_clip_reference(yt, yp, CLIP_VALUE)
+    for got in (wide, narrow):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -268,3 +303,33 @@ def test_cuda_means_repeat_bitwise_and_match(cuda_device, shape):
     torch.cuda.synchronize()
     torch.testing.assert_close(first, mae_clip_reference(yt, yp, CLIP_VALUE), atol=0, rtol=1e-5)
     assert all(torch.equal(r, first) for r in runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rounds", [((3, 4096 * 24), 40), ((3, 4096 * 1024), 8)])
+def test_cuda_wide_rows_on_two_streams(cuda_device, shape, rounds):
+    """Wide rows (24 and 1024 blocks a row, summed by the block that draws
+    the row's last ticket) launched alternately on two streams with no
+    synchronise between them, each call on other inputs. Both streams first
+    wait behind a sleep kernel, so that their calls run at once on the
+    card. Each call's tickets live in its own partials, so each call's
+    means match its plain version (rtol 1e-5) and equal, bit for bit, the
+    same call made alone."""
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    calls = [tuple(torch.randn(shape, generator=gen, device=cuda_device) * 5
+                   for _ in range(2)) for _ in range(2 * rounds)]
+    torch.cuda.synchronize()
+    got = [None] * len(calls)
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    for i, (yt, yp) in enumerate(calls):
+        with torch.cuda.stream(streams[i % 2]):
+            got[i] = mae_clip_rows(yt, yp, CLIP_VALUE)
+    torch.cuda.synchronize()
+    for i, (yt, yp) in enumerate(calls):
+        alone = mae_clip_rows(yt, yp, CLIP_VALUE)
+        torch.testing.assert_close(got[i], mae_clip_reference(yt, yp, CLIP_VALUE),
+                                   atol=0, rtol=1e-5, msg=lambda m: f"call {i}: {m}")
+        assert torch.equal(got[i], alone), f"call {i}"

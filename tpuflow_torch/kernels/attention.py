@@ -12,10 +12,14 @@ by operations from T of about 150:
   row's scores in registers; longer ones as the online softmax over 64-row
   K/V tiles up to the diagonal, one block per (bh, 64-row q tile), with
   Q K^T and P V on the tensor cores in 3xTF32 (about f32 accuracy);
-- ``csrc/flash_bwd.cu`` holds ``flash_dq``, which replaces ``_dq_kernel``
-  (the same tiling, probabilities recomputed from ``lse``, dq scaled once
-  at the end), and ``flash_dkv``, which replaces ``_dkv_kernel`` (one block
-  per (bh, 64-row k tile), q tiles from the diagonal to the end);
+- ``csrc/flash_bwd.cu`` holds ``flash_dq``, which replaces ``_dq_kernel``,
+  and ``flash_dkv``, which replaces ``_dkv_kernel``, in the forward's two
+  designs: windows of up to 64 as whole (bh) slices, a thread group a q
+  row (dq) or key row (dkv) walking only the pairs it sees; longer ones as
+  64-row tiles, the heaviest first, with S, dP and the gradient products
+  on the tensor cores in 3xTF32 (dq over K/V tiles up to the diagonal,
+  dk and dv over Q/dO tiles from the diagonal to the end); probabilities
+  recomputed from ``lse``, the scale applied once at the end;
 - ``csrc/ring_round.cu`` holds ``ring_round_fwd``, which replaces
   ``_round_fwd_kernel`` (launched by ``ring_round_fwd``): one causal ring
   round, the running (m, l, acc) of the local q chunk updated against one

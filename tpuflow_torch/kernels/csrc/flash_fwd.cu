@@ -60,29 +60,18 @@
 
 namespace {
 
+using flash::cp_async_16;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
 using flash::kBlock;
 using flash::kDimsPerThread;
+using flash::mma_3xtf32;
+using flash::mma_3xtf32_split;
+using flash::split_tf32;
 constexpr float kNeg = -1e30f;  // the reference's finite mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kSMs = 132;  // streaming multiprocessors, H100 SXM
-
-// 16 bytes from global into shared memory, asynchronously, through L2;
-// zeros where !in.
-__device__ __forceinline__ void cp_async_16(float* dst, const float* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 // --- 1. short windows ------------------------------------------------------
 
@@ -254,48 +243,6 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src, int r0,
     cp_async_16(dst + r * kStride + 4 * c, in ? src + (int64_t)(r0 + r) * D + 4 * c : src,
                 in);
   }
-}
-
-// The TF32 value nearest a float's bits (ties away from zero): the low 13
-// mantissa bits rounded off, a carry running into the exponent.
-__device__ __forceinline__ uint32_t tf32_rn(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// x ~ hi + lo, both TF32: hi is x rounded to TF32, lo the rest (exact in
-// f32) rounded to TF32, so hi + lo carries about 22 of x's 24 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rn(__float_as_uint(x));
-  lo = tf32_rn(__float_as_uint(x - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a * b in 3xTF32, the small products first.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4],
-                                           const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi);
-  mma_tf32(d, a_hi, b_lo);
-  mma_tf32(d, a_hi, b_hi);
-}
-
-// big += a_hi * b_hi and small += a_lo * b_hi + a_hi * b_lo: two chains.
-__device__ __forceinline__ void mma_3xtf32_split(float (&big)[4], float (&small)[4],
-                                                 const uint32_t (&a_hi)[4],
-                                                 const uint32_t (&a_lo)[4],
-                                                 const uint32_t (&b_hi)[2],
-                                                 const uint32_t (&b_lo)[2]) {
-  mma_tf32(small, a_lo, b_hi);
-  mma_tf32(big, a_hi, b_hi);
-  mma_tf32(small, a_hi, b_lo);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -30,8 +30,11 @@
 //   chunk is written by its block. For more, each block writes its partial,
 //   then takes an integer ticket (__threadfence, then atomicAdd on the
 //   row's counter); the block that draws the last ticket sums the row's
-//   partials in index order, writes the mean and resets the counter for
-//   the next call. No float atomics: the means are the same every run.
+//   partials in index order and writes the mean. No float atomics: the
+//   means are the same every run. The counter is the row's last column of
+//   the call's partials, zeroed by the caller on the launch stream, so
+//   tickets live and die with the call and calls on several streams at
+//   once keep theirs apart.
 // - loads are 16 bytes wide where the rows allow it (N a multiple of 4,
 //   both operands 16-byte aligned), one float otherwise;
 // - NaN propagates (clip keeps it, as jnp.clip does).
@@ -47,12 +50,6 @@ constexpr int64_t kChunk = (int64_t)kThreads * kVecPerThread * 4;  // 4096
 constexpr int64_t kNarrow = 1024;  // rows up to this take a warp each
 constexpr int kRowsPerBlock = kThreads / 32;
 constexpr int kMaxRows = 65535;  // gridDim.y of the wide rows
-
-// The tickets of the wide rows: zero when the module loads, and set back to
-// zero by the last block of each row. They outlive a call, so two wide-row
-// launches must not run at once on two streams of one device (each device
-// has its own copy).
-__device__ unsigned int g_tickets[kMaxRows];
 
 // clip(|d|, 0, clip), NaN kept (as jnp.clip keeps it).
 __device__ __forceinline__ float clipped(float d, float clip) {
@@ -116,7 +113,9 @@ mae_clip_narrow_kernel(const float* __restrict__ yt, const float* __restrict__ y
   if (lane == 0) means[row] = acc / (float)N;
 }
 
-// Wider rows: block (chunk, row) sums its chunk of kChunk elements.
+// Wider rows: block (chunk, row) sums its chunk of kChunk elements. Row r
+// of partials is [chunks + 1]: the blocks' sums, then the ticket counter
+// (an unsigned int, zero at the launch).
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 mae_clip_wide_kernel(const float* __restrict__ yt, const float* __restrict__ yp,
@@ -157,11 +156,12 @@ mae_clip_wide_kernel(const float* __restrict__ yt, const float* __restrict__ yp,
   }
 
   __shared__ bool last;
-  float* p = partials + (int64_t)row * chunks;
+  float* p = partials + (int64_t)row * (chunks + 1);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(p + chunks);
   if (threadIdx.x == 0) {
     p[chunk] = acc;
     __threadfence();  // the partial is visible before the ticket is drawn
-    last = atomicAdd(&g_tickets[row], 1u) == (unsigned)(chunks - 1);
+    last = atomicAdd(ticket, 1u) == (unsigned)(chunks - 1);
   }
   __syncthreads();
   if (!last) return;
@@ -171,10 +171,7 @@ mae_clip_wide_kernel(const float* __restrict__ yt, const float* __restrict__ yp,
   acc = 0.0f;
   for (int c = threadIdx.x; c < chunks; c += kThreads) acc += __ldcg(p + c);
   acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    means[row] = acc / (float)N;
-    g_tickets[row] = 0u;
-  }
+  if (threadIdx.x == 0) means[row] = acc / (float)N;
 }
 
 // The gradient, elementwise over n: thread i takes float4 i, i + stride, ...
@@ -220,15 +217,17 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 extern "C" {
 
-// Column chunks of a row of N elements, the width of the partials: 1 for
-// rows that one block (or one warp) sums.
+// Column chunks of a row of N elements: 1 for rows that one block (or one
+// warp) sums.
 int64_t tpuflow_mae_clip_chunks(int64_t N) {
   return N <= kNarrow ? 1 : (N + kChunk - 1) / kChunk;
 }
 
-// means[R] of clip(|yt - yp|, 0, clip) over rows of N. partials holds
-// R * tpuflow_mae_clip_chunks(N) floats, and is used only where that is more
-// than 1. Returns 0, or the CUDA error code.
+// means[R] of clip(|yt - yp|, 0, clip) over rows of N. Where
+// tpuflow_mae_clip_chunks(N) is more than 1, partials holds R rows of that
+// many floats and one ticket counter each, the counters zero at the launch
+// (on this stream); it is not read otherwise. Returns 0, or the CUDA error
+// code.
 int tpuflow_mae_clip_means_f32(const float* yt, const float* yp, float* partials,
                                float* means, int R, int64_t N, float clip,
                                void* stream) {

@@ -12,8 +12,8 @@ training shapes by the launch), so each call is one launch:
   f32, so one launch gives both the train loss (one row over the flattened
   batch) and the eval step's per-example losses (one row per example). Rows
   of up to 1024 elements take a warp each; wider rows take blocks of 4096
-  elements, whose partials the last block of the row (by an integer ticket)
-  sums in a fixed order.
+  elements, whose partials the last block of the row (by an integer ticket
+  from a counter in the call's own partials) sums in a fixed order.
 - ``mae_clip_grad`` is the loss's backward, the JAX package's plain ``_bwd``
   (``losses.py:99``) that XLA fuses into one pass: ``dyt = (g / n) *
   sign(d) * (|d| < clip)`` and ``dyp = -dyt`` in one elementwise pass, ``g``
@@ -122,12 +122,9 @@ def mae_clip_rows(
     contiguous, one device, R <= 65535) and count one launch in
     ``mae_clip_rows.launches``; CPU tensors go through
     ``mae_clip_reference``. Not differentiable: the loss with its gradient
-    is ``mae_clip``.
-
-    Rows wider than one block draw tickets from counters that the kernel
-    keeps on the device between calls, so two such calls must not run at
-    once on two streams of one device; every path of the port launches it
-    on one stream.
+    is ``mae_clip``. Calls may run at once on several streams: a row wider
+    than one block draws its tickets from a counter in the call's own
+    partials.
     """
     R, N = _check_rows(y_true, y_pred)
     if y_pred.device != y_true.device:
@@ -145,12 +142,14 @@ def mae_clip_rows(
     means = torch.empty(R, dtype=torch.float32, device=y_true.device)
     if R == 0:
         return means
-    # The row's partials, as wide as the kernel's layout asks (none for a
-    # row that one warp or one block sums).
+    # A row's partials, as many as its blocks, and its ticket counter, all
+    # zeroed on this stream before the launch; none for a row that one warp
+    # or one block sums, which then launches nothing else.
     chunks = _library().tpuflow_mae_clip_chunks(N)
-    partials = torch.empty(
-        (R, chunks if chunks > 1 else 0), dtype=torch.float32, device=y_true.device
-    )
+    if chunks > 1:
+        partials = torch.zeros((R, chunks + 1), dtype=torch.float32, device=y_true.device)
+    else:
+        partials = torch.empty((R, 0), dtype=torch.float32, device=y_true.device)
     _launch("tpuflow_mae_clip_means_f32", f"mae_clip launch (R={R}, N={N})",
             y_true, y_pred, partials, means, R, N, float(clip))
     _count(mae_clip_rows)
