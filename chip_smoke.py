@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero before the result line:
    LSTM kernels also at hidden sizes 128, 256, 50, 300, 512 and 2048, and
    the backward at 12000, past the hidden size whose chain tiles fit in
    shared memory; the ring rounds at five shapes, each with a diagonal, a
-   past and a future block), with CUDA-event timings of the kernel, the
+   past and a future block, and two rounds whose causal edge crosses
+   tiles), with CUDA-event timings of the kernel, the
    plain version and, where one exists, a library call as a yardstick.
    ``lstm_bwd`` is three kernels (gates, chain, weight gradients): each is
    held against its own plain piece, and timed by CUDA events and by
@@ -26,9 +27,11 @@ Phases, in order; any failure exits non-zero before the result line:
    for bit. ``lstm_fwd`` (one persistent kernel with a barrier across the
    grid between steps), ``mae_clip`` (whose wide rows are summed by the
    block that draws the last ticket), ``mae_clip_grad``, ``flash_fwd``,
-   ``flash_dq`` and ``flash_dkv`` must also give bitwise the same result in
-   200 launches back to back, and wide-row ``mae_clip`` calls on two
-   streams at once must each match their plain version.
+   ``flash_dq``, ``flash_dkv``, ``ring_round_fwd`` and ``ring_round_bwd``
+   must also give bitwise the same result in 200 launches back to back,
+   and wide-row ``mae_clip`` calls on two streams at once must each match
+   their plain version. A future ring round must copy the forward's state
+   through bit for bit and give zero gradients.
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
@@ -77,6 +80,13 @@ tree's ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at ``FLASH_SHAPES``
 and ``mae_clip`` (and ``mae_clip_grad`` where the tree has it) at their
 shapes alone, by CUDA events and profiled device time; for comparing two
 trees in turns.
+
+``python3 chip_smoke.py --ring-steps ROOT`` builds only ROOT's
+``ring_round.cu`` and times that tree's ``ring_round_fwd`` and
+``ring_round_bwd`` alone at each of ``RING_SHAPES`` and ``RING_PATTERNS``
+(CUDA events, and the median of three 20-call profiler windows of device
+time), beside their f32 and 3xTF32 bounds; for comparing two trees in
+turns.
 """
 
 from __future__ import annotations
@@ -160,6 +170,10 @@ FLASH_SHAPES = ((80, 24, 16), (80, 256, 16), (16384, 24, 16), (256, 1024, 16),
 RING_SHAPES = ((80, 64, 16), (80, 256, 16), (256, 1024, 16), (80, 100, 16), (64, 250, 64))
 # (q_off, k_off) in chunk lengths: the diagonal round, a past and a future block.
 RING_PATTERNS = {"diagonal": (1, 1), "past": (2, 1), "future": (0, 1)}
+# Rounds whose causal edge crosses tiles of the local chunk (q_off - k_off =
+# 30, offsets not multiples of Tl or of 64), at a ragged chunk of each
+# design: (BH, Tl, D) and (q_off, k_off).
+RING_UNALIGNED = (((80, 100, 16), (107, 77)), ((64, 250, 64), (107, 77)))
 RING_RANKS = 4  # the JAX tests' ring (tests/conftest.py RING_DEVICES)
 RING_WINDOW = 1024  # the gradient and SP phases' sequence length
 RING_TRAIN_WINDOW = 256
@@ -314,6 +328,22 @@ def flash_dkv_tc_bound(BH: int, Tn: int, D: int) -> tuple[float, str]:
     bytes, three times its 8*D operations a causal pair, one exponential a
     causal pair."""
     return _tc_bound(4 * (6 * BH * Tn * D + 2 * BH * Tn), 8 * D, BH * causal_pairs(Tn))
+
+
+def ring_fwd_tc_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
+    """Least time for ring_round_fwd on the tensor cores in 3xTF32:
+    ring_fwd_bound's bytes, three times its 4*D operations an allowed pair,
+    one exponential an allowed pair."""
+    nbytes = 4 * (4 * BH * Tl * D + 2 * BH * Tl + BH * Tl * D + 2 * BH * Tl)
+    return _tc_bound(nbytes, 4 * D, BH * pairs)
+
+
+def ring_bwd_tc_bound(BH: int, Tl: int, D: int, pairs: int) -> tuple[float, str]:
+    """Least time for ring_round_bwd on the tensor cores in 3xTF32:
+    ring_bwd_bound's bytes, three times its 10*D operations an allowed
+    pair, one exponential an allowed pair."""
+    nbytes = 4 * (4 * BH * Tl * D + 2 * BH * Tl + 3 * BH * Tl * D)
+    return _tc_bound(nbytes, 10 * D, BH * pairs)
 
 
 def mae_clip_bound(R: int, N: int) -> tuple[float, str]:
@@ -795,10 +825,13 @@ def kernel_flash(torch) -> dict:
 
 def kernel_ring(torch) -> dict:
     """ring_round_fwd and ring_round_bwd against their plain versions at
-    RING_SHAPES, each at the three RING_PATTERNS. The forward starts from a
-    genuine running state (the plain round of a diagonal block), and the
-    backward takes the log-sum-exp and delta of the forward's result.
-    Returns the records of the ring train step's diagonal round."""
+    RING_SHAPES, each at the three RING_PATTERNS, and at RING_UNALIGNED's
+    offsets. The forward starts from a genuine running state (the plain
+    round of a diagonal block), and the backward takes the log-sum-exp and
+    delta of the forward's result; a future block must copy the forward's
+    state through bit for bit and give zero gradients. Logs each kernel's
+    f32 and 3xTF32 bounds. Returns the records of the ring train step's
+    diagonal round."""
     from tpuflow_torch.kernels.attention import (
         ring_round_bwd,
         ring_round_bwd_reference,
@@ -813,13 +846,16 @@ def kernel_ring(torch) -> dict:
         f"backward normwise within {FLASH_GRAD_TOL}; library: none (no single PyTorch "
         "call returns a round's state or its partial gradients)")
     records, worst = {}, {"ring_round_fwd": 0.0, "ring_round_bwd": 0.0}
+    unaligned = dict(RING_UNALIGNED)
     for BH, Tl, D in RING_SHAPES:
         q, k, v, do, k0, v0 = (torch.randn((BH, Tl, D), generator=gen, device=dev)
                                for _ in range(6))
         scale = D ** -0.5
         big = Tl >= 1024
-        for pattern, (qo, ko) in RING_PATTERNS.items():
-            q_off, k_off = qo * Tl, ko * Tl
+        offsets = {pattern: (qo * Tl, ko * Tl) for pattern, (qo, ko) in RING_PATTERNS.items()}
+        if (BH, Tl, D) in unaligned:
+            offsets["unaligned"] = unaligned[BH, Tl, D]
+        for pattern, (q_off, k_off) in offsets.items():
             start = (torch.full((BH, Tl), -1e30, device=dev), torch.zeros((BH, Tl), device=dev),
                      torch.zeros((BH, Tl, D), device=dev))
             m, l, acc = ring_round_fwd_reference(q, k0, v0, *start, q_off, q_off, scale)
@@ -827,6 +863,9 @@ def kernel_ring(torch) -> dict:
             torch.cuda.synchronize()
             want = ring_round_fwd_reference(q, k, v, m, l, acc, q_off, k_off, scale)
             (gm, gl, ga), (wm, wl, wa) = got, want
+            if pattern == "future" and not all(map(torch.equal, got, (m, l, acc))):
+                raise AssertionError(f"ring_round_fwd: a future block at {(BH, Tl, D)} "
+                                     "changed the running state")
             fwd_err = max((gm - wm).abs().max().item(),
                           ((gm + torch.log(gl)) - (wm + torch.log(wl))).abs().max().item(),
                           ((ga / gl[..., None]) - (wa / wl[..., None])).abs().max().item())
@@ -865,13 +904,18 @@ def kernel_ring(torch) -> dict:
             pairs = ring_pairs(Tl, q_off, k_off)
             bounds = {"ring_round_fwd": ring_fwd_bound(BH, Tl, D, pairs),
                       "ring_round_bwd": ring_bwd_bound(BH, Tl, D, pairs)}
-            log(f"[kernel] ring (BH, Tl, D)=({BH}, {Tl}, {D}) {pattern:8s} pairs/head={pairs}: "
+            tc = {"ring_round_fwd": ring_fwd_tc_bound(BH, Tl, D, pairs),
+                  "ring_round_bwd": ring_bwd_tc_bound(BH, Tl, D, pairs)}
+            log(f"[kernel] ring (BH, Tl, D)=({BH}, {Tl}, {D}) {pattern:9s} "
+                f"q_off={q_off} k_off={k_off} pairs/head={pairs}: "
                 f"fwd max_abs_err={fwd_err:.3e} kernel_ms={ms['ring_round_fwd']:.4f} "
                 f"plain_ms={plain_ms['ring_round_fwd']:.4f} "
-                f"bound_ms={bounds['ring_round_fwd'][0]:.6f} ({bounds['ring_round_fwd'][1]}); "
+                f"bound_ms={bounds['ring_round_fwd'][0]:.6f} ({bounds['ring_round_fwd'][1]}) "
+                f"3xTF32 bound_ms={tc['ring_round_fwd'][0]:.6f} ({tc['ring_round_fwd'][1]}); "
                 "bwd normwise_err=" + ",".join(f"{n}:{e:.3e}" for n, e in norm.items())
                 + f" kernel_ms={ms['ring_round_bwd']:.4f} plain_ms={plain_ms['ring_round_bwd']:.4f} "
                 f"bound_ms={bounds['ring_round_bwd'][0]:.6f} ({bounds['ring_round_bwd'][1]}) "
+                f"3xTF32 bound_ms={tc['ring_round_bwd'][0]:.6f} ({tc['ring_round_bwd'][1]}) "
                 "library_ms=null")
             if (BH, Tl, D) == RING_SHAPES[0] and pattern == "diagonal":
                 for name in ms:
@@ -881,6 +925,19 @@ def kernel_ring(torch) -> dict:
     for name, record in records.items():
         record["max_abs_err"] = worst[name]
     return records
+
+
+def ring_round_inputs(torch, gen, BH: int, Tl: int, D: int) -> tuple[tuple, tuple]:
+    """Seeded inputs of one ring round on the card: ``(q, k, v, m, l, acc)``
+    for the forward and ``(q, k, v, do, lse, delta)`` for the backward, with
+    l in [0.5, 1.5) and lse in [3, 4), above every score as a real one is."""
+    dev = torch.device("cuda")
+    q, k, v, do, acc = (torch.randn((BH, Tl, D), generator=gen, device=dev)
+                        for _ in range(5))
+    m, delta = (torch.randn((BH, Tl), generator=gen, device=dev) for _ in range(2))
+    l = 0.5 + torch.rand((BH, Tl), generator=gen, device=dev)
+    lse = 3.0 + torch.rand((BH, Tl), generator=gen, device=dev)
+    return (q, k, v, m, l, acc), (q, k, v, do, lse, delta)
 
 
 def kernel_mae_clip(torch) -> dict:
@@ -965,14 +1022,17 @@ def kernel_repeat(torch) -> None:
     """REPEAT_LAUNCHES launches back to back of mae_clip and mae_clip_grad
     (at each of MAE_SHAPES: the wide row's last block sums by ticket), of
     flash_fwd, and of flash_dq and flash_dkv (at each of FLASH_SHAPES, on
-    the forward's lse and delta) must equal the first bitwise. Each launch
-    is compared with the first on the card as it goes (no synchronise in
-    between). Raises on a mismatch."""
+    the forward's lse and delta), and of ring_round_fwd and ring_round_bwd
+    (at each of RING_SHAPES, a diagonal and a past round) must equal the
+    first bitwise. Each launch is compared with the first on the card as it
+    goes (no synchronise in between). Raises on a mismatch."""
     from tpuflow_torch.core.losses import CLIP_VALUE
     from tpuflow_torch.kernels.attention import (
         flash_attention_dkv,
         flash_attention_dq,
         flash_attention_forward,
+        ring_round_bwd,
+        ring_round_fwd,
     )
     from tpuflow_torch.kernels.losses import mae_clip_grad, mae_clip_rows
 
@@ -994,6 +1054,15 @@ def kernel_repeat(torch) -> None:
         args = (q, k, v, do, lse, (do * o).sum(-1))
         cases += [(f"flash_dq {(BH, Tn, D)}", lambda a=args: (flash_attention_dq(*a),)),
                   (f"flash_dkv {(BH, Tn, D)}", lambda a=args: flash_attention_dkv(*a))]
+    for BH, Tl, D in RING_SHAPES:
+        fwd_in, bwd_in = ring_round_inputs(torch, gen, BH, Tl, D)
+        for pattern in ("diagonal", "past"):
+            qo, ko = RING_PATTERNS[pattern]
+            offs = (qo * Tl, ko * Tl, D ** -0.5)
+            cases += [(f"ring_round_fwd {(BH, Tl, D)} {pattern}",
+                       lambda a=fwd_in + offs: ring_round_fwd(*a)),
+                      (f"ring_round_bwd {(BH, Tl, D)} {pattern}",
+                       lambda a=bwd_in + offs: ring_round_bwd(*a))]
     for what, fn in cases:
         first = fn()
         differs = []
@@ -1233,10 +1302,10 @@ def log_profiled_steps(model_name, by_kernel: dict, wall_ms: float) -> None:
         + "; ".join(f"{k[:60]}={v:.4f}" for k, v in top))
 
 
-def _tree(root: str):
+def _tree(root: str, stems=None):
     """Import the port from the tree at ROOT (this checkout, or another tree
-    unpacked beside it) and build its kernels; returns ``torch``, or None
-    when there is no card."""
+    unpacked beside it) and build its kernels (``stems``, or all); returns
+    ``torch``, or None when there is no card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1249,7 +1318,7 @@ def _tree(root: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build()
+    _build.build(stems)
     log(f"[steps] tree {os.path.dirname(os.path.abspath(tpuflow_torch.__file__))}; "
         f"card: {nvidia_smi()}")
     return torch
@@ -1448,6 +1517,43 @@ def flash_loss_steps(root: str) -> int:
                      f"{cuda_ms(torch, lambda: grad(yt, yp, g, CLIP_VALUE)):.4f} device_ms="
                      f"{sum(profiled_ms(torch, lambda: grad(yt, yp, g, CLIP_VALUE)).values()):.4f}")
         log(line)
+    return 0
+
+
+def ring_steps(root: str) -> int:
+    """``--ring-steps ROOT``: that tree's ring_round_fwd and ring_round_bwd
+    alone at each of RING_SHAPES and RING_PATTERNS, on seeded inputs, by
+    CUDA events and profiled device time (the median of three profiler
+    windows of 20 calls, with the kernels each window saw), beside the f32
+    and 3xTF32 bounds; for comparing two trees in turns on one card."""
+    torch = _tree(root, ["ring_round"])
+    if torch is None:
+        return 1
+    from tpuflow_torch.kernels.attention import ring_round_bwd, ring_round_fwd
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(12)
+    for BH, Tl, D in RING_SHAPES:
+        fwd_in, bwd_in = ring_round_inputs(torch, gen, BH, Tl, D)
+        for pattern, (qo, ko) in RING_PATTERNS.items():
+            q_off, k_off = qo * Tl, ko * Tl
+            pairs = ring_pairs(Tl, q_off, k_off)
+            offs = (q_off, k_off, D ** -0.5)
+            for name, fn, bound, tc_bound in (
+                    ("ring_round_fwd", lambda: ring_round_fwd(*fwd_in, *offs),
+                     ring_fwd_bound, ring_fwd_tc_bound),
+                    ("ring_round_bwd", lambda: ring_round_bwd(*bwd_in, *offs),
+                     ring_bwd_bound, ring_bwd_tc_bound)):
+                ms = cuda_ms(torch, fn)
+                windows = [profiled_ms(torch, fn, runs=20) for _ in range(3)]
+                device = [sum(t for n, t in w.items() if "ring_round" in n) for w in windows]
+                f32_ms, f32_by = bound(BH, Tl, D, pairs)
+                tc_ms, tc_by = tc_bound(BH, Tl, D, pairs)
+                log(f"[steps] {name} alone {(BH, Tl, D)} {pattern:8s}: kernel_ms={ms:.4f} "
+                    f"device_ms={statistics.median(device):.4f} (windows "
+                    + ", ".join(f"{d:.4f}" for d in device) + "; kernels "
+                    + ", ".join(str(len(w)) for w in windows)
+                    + f") bound_ms={f32_ms:.6f} ({f32_by}) "
+                    f"3xTF32 bound_ms={tc_ms:.6f} ({tc_by})")
     return 0
 
 
@@ -1996,4 +2102,6 @@ if __name__ == "__main__":
         sys.exit(lstm_steps(sys.argv[2]))
     if sys.argv[1:2] == ["--flash-loss-steps"]:
         sys.exit(flash_loss_steps(sys.argv[2]))
+    if sys.argv[1:2] == ["--ring-steps"]:
+        sys.exit(ring_steps(sys.argv[2]))
     sys.exit(main())

@@ -98,6 +98,46 @@ def test_round_backward_matches_jax(monkeypatch, Tl, pattern):
         assert all(not g.any() for g in got)
 
 
+# q_off - k_off of rounds whose causal edge lies inside a tile or across
+# tiles (of 8 rows here): the ring never gives them, the kernels' interface
+# allows them.
+UNALIGNED = [-5, 3, 13, 29]
+
+
+@pytest.mark.parametrize("ahead", UNALIGNED)
+@pytest.mark.parametrize("Tl", [12, 20])
+def test_round_kernels_match_jax_at_unaligned_offsets(monkeypatch, Tl, ahead):
+    import jax.numpy as jnp
+
+    from tpuflow.kernels.attention import ring_round_bwd as jax_ring_round_bwd
+    from tpuflow.kernels.attention import ring_round_fwd as jax_ring_round_fwd
+
+    monkeypatch.setenv("TPUFLOW_FLASH_BLOCK", "8")
+    a = _round_inputs(2, Tl, 8, seed=200 + Tl + ahead)
+    k_off = 37
+    q_off = k_off + ahead
+    scale = 8 ** -0.5
+    names = ("q", "k", "v", "m", "l", "acc")
+    want = jax_ring_round_fwd(*(jnp.asarray(a[n]) for n in names),
+                              jnp.int32(q_off), jnp.int32(k_off), scale)
+    for got in (ring_round_fwd(*(_t(a[n]) for n in names), q_off, k_off, scale),
+                ring_round_fwd_reference(*(_t(a[n]) for n in names), q_off, k_off, scale,
+                                         block=8)):
+        for g, w, name in zip(got, want, ("m", "l", "acc")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
+    if ahead < 0:  # rows that no key reaches keep their stats
+        for g, n in zip(got, ("m", "l", "acc")):
+            np.testing.assert_array_equal(g.numpy()[:, :-ahead], a[n][:, :-ahead])
+    names = ("q", "k", "v", "do", "lse", "delta")
+    want = jax_ring_round_bwd(*(jnp.asarray(a[n]) for n in names),
+                              jnp.int32(q_off), jnp.int32(k_off), scale)
+    for got in (ring_round_bwd(*(_t(a[n]) for n in names), q_off, k_off, scale),
+                ring_round_bwd_reference(*(_t(a[n]) for n in names), q_off, k_off, scale,
+                                         block=8)):
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, err_msg=name)
+
+
 def test_rounds_compose_to_causal_attention():
     """Four rounds of the plain versions over the chunks of one sequence, in
     the ring's order for each chunk, give causal attention and its
@@ -199,3 +239,44 @@ def test_cuda_round_kernels_match_plain_versions(cuda_device, B, Tl, D, pattern)
             assert not g.any()
         else:
             assert _normwise_err(g, w) <= GRAD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", sorted(OFFSETS) + ["unaligned"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("Tl", [1, 63, 64, 65, 128, 250])
+def test_cuda_round_kernels_on_both_sides_of_the_design_switch(cuda_device, Tl, D, pattern):
+    """The short-chunk kernels (Tl <= 64; at 531 heads, so that blocks take
+    several slices and the last one fewer) and the tensor-core ones (Tl > 64)
+    at every head dim, the three patterns and q_off - k_off = 30 - Tl // 2,
+    which puts the causal edge inside a tile (and leaves the first rows
+    without a key where it is negative): the forward within 1e-5 of the
+    plain version on m, m + log(l) and acc / l, the backward normwise within
+    1e-4; a future block copies the stats through bit for bit and gives zero
+    gradients. One launch each."""
+    B = 531 if Tl <= 64 else 3
+    a = {n: _t(x).to(cuda_device) for n, x in _round_inputs(B, Tl, D, seed=Tl + D).items()}
+    if pattern == "unaligned":
+        q_off, k_off = 4 * Tl + 30, 4 * Tl + Tl // 2
+    else:
+        q_off, k_off = (o * Tl for o in OFFSETS[pattern])
+    scale = D ** -0.5
+    fwd_in = tuple(a[n] for n in ("q", "k", "v", "m", "l", "acc"))
+    bwd_in = tuple(a[n] for n in ("q", "k", "v", "do", "lse", "delta"))
+    counts = {n: w.launches for n, w in KERNELS.items()}
+    fwd = ring_round_fwd(*fwd_in, q_off, k_off, scale)
+    bwd = ring_round_bwd(*bwd_in, q_off, k_off, scale)
+    torch.cuda.synchronize()
+    got_counts = {n: w.launches - counts[n] for n, w in KERNELS.items()}
+    assert got_counts == {**dict.fromkeys(KERNELS, 0), "ring_round_fwd": 1, "ring_round_bwd": 1}
+    if pattern == "future":
+        for g, n in zip(fwd, ("m", "l", "acc")):
+            assert torch.equal(g, a[n]), n
+        assert not any(g.any() for g in bwd)
+        return
+    (gm, gl, ga), (wm, wl, wa) = fwd, ring_round_fwd_reference(*fwd_in, q_off, k_off, scale)
+    for g, w in ((gm, wm), (gm + torch.log(gl), wm + torch.log(wl)),
+                 (ga / gl[..., None], wa / wl[..., None])):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    for g, w in zip(bwd, ring_round_bwd_reference(*bwd_in, q_off, k_off, scale)):
+        assert _normwise_err(g, w) <= GRAD_ATOL
