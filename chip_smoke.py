@@ -35,11 +35,25 @@ Phases, in order; any failure exits non-zero before the result line:
 4. train   — ``train(TrainJobConfig(...))`` at its defaults on the default
    device: LSTM-64 for 3 epochs, the stacked LSTM for 2, the attention
    regressor for 3, then the attention regressor at a 256-step window for
-   1. Each run's kernel launches must equal what the dataset sizes give;
+   1. AUTO resolves each to the scanned epoch program, a CUDA graph of the
+   train step replayed once a batch, and the run must say so. Each run's
+   kernel launches must equal what the dataset sizes give, both as the
+   wrappers count them (a graph's captured counts added once a replay) and
+   as each run's ``torch.profiler`` device trace shows its kernels run;
    losses must be finite and LSTM-64 and the 3-epoch attention run must
    beat the Gilbert baseline. Then, after the counted runs: one batch's
    gradients through the kernels against the plain path, steady train
    samples/s, and a ``torch.profiler`` window of steady steps.
+   graph   — the epoch program itself: for LSTM-64, the stacked LSTM and
+   attention, one epoch per-batch and one graphed from the same weights
+   (``keras_sgd(decay=0.1)``) run the same kernels in their device traces
+   (each equal to its run's wrapper counts) and give final parameters
+   at most 1e-6 apart (bitwise or not, said); a captured ``lstm_fwd``
+   (a cooperative launch) replays 200 times bitwise equal to an eager
+   call; with dropout, successive replays draw different masks; an
+   explicit ``jit_epoch=True`` with a ring raises; and both programs timed
+   in turns: host-clock step, profiled device busy time, idle share, and
+   host and device launches a step.
 5. ring    — four ranks (``spawn``; NCCL with a card each, else gloo on
    ``cuda:0`` with the ring's tensors staged through host memory): one
    batch at window 1024 through ``backend="ring"`` against ``backend=
@@ -62,7 +76,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 The line before last is ``nvidia-smi``'s name and power limit, the one
 before it the kernels' JSON record (launches from the counted train runs;
-for the ring-round kernels, rank 0's in the ring training),
+for the ring-round kernels, rank 0's in the ring training: ``launches`` as
+the wrappers count them, ``traced_launches`` as the device trace shows the
+kernels run),
 and the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``tpuflow``.
 
@@ -80,6 +96,10 @@ tree's ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at ``FLASH_SHAPES``
 and ``mae_clip`` (and ``mae_clip_grad`` where the tree has it) at their
 shapes alone, by CUDA events and profiled device time; for comparing two
 trees in turns.
+
+``python3 chip_smoke.py --program-sweep`` times both epoch programs of
+LSTM-64, the stacked LSTM and attention at batches 20, 256, 1024 and 4096
+and prints the crossover batch by the JAX package's rule as one JSON line.
 
 ``python3 chip_smoke.py --ring-steps ROOT`` builds only ROOT's
 ``ring_round.cu`` and times that tree's ``ring_round_fwd`` and
@@ -1146,12 +1166,14 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     return want, sizes
 
 
-def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
+def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, float]:
     """Train LSTM-64 (3 epochs), the stacked LSTM (2 epochs) and the
     attention regressor (3 epochs) through ``train(TrainJobConfig(...))`` at
     its defaults into ``root``, then the attention regressor at a 256-step
     window (1 epoch, into a directory of its own); returns the kernels'
-    launches summed over the counted runs, and the 256-step run's test MAE."""
+    launches summed over the counted runs (each run's wrapper counts and the
+    executions in its device trace, which must agree), and the 256-step
+    run's test MAE."""
     from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.api.train_api import train
     from tpuflow_torch.data.pipeline import prepare_windowed
@@ -1159,6 +1181,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
     from tpuflow_torch.kernels import KERNELS
 
     totals = dict.fromkeys(KERNELS, 0)
+    traced_totals = dict.fromkeys(KERNELS, 0)
     models = []
     runs = (("lstm", 3, T), ("stacked_lstm", 2, T), ("attention", 3, T), ("attention", 1, 256))
     for model_name, epochs, window in runs:
@@ -1171,8 +1194,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
         for k in KERNELS.values():
             k.launches = 0
         t0 = time.perf_counter()
-        report = train(config)  # device left at its default: cuda
-        torch.cuda.synchronize()
+        report, ran = traced(torch, lambda: train(config))  # default device: cuda
         seconds = time.perf_counter() - t0
         got = {name: k.launches for name, k in KERNELS.items()}
         history = report.result.history
@@ -1185,9 +1207,17 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
             f"test_mae={report.test_mae:.2f} gilbert_mae={report.gilbert_mae:.2f} "
             f"stb/day; fit samples/s={report.samples_per_sec:.1f} (host clock over "
             f"the fit, eval included; card: {smi}); program {report.epoch_program}")
-        log(f"[train] {label:14s} launches {got}, expected {want}")
+        log(f"[train] {label:14s} epoch program {report.epoch_program}: "
+            f"{report.epoch_program_reason}")
+        if report.epoch_program != "jit_epoch":
+            raise AssertionError(f"{label}: AUTO chose {report.epoch_program}, not the "
+                                 "scanned epoch, at batch 20 on the card")
+        log(f"[train] {label:14s} launches {got} (wrapper counts, graph replays "
+            f"added), expected {want}; in the device trace {ran}")
         if got != want:
             raise AssertionError(f"{label}: kernel launches {got} != {want}")
+        if ran != want:
+            raise AssertionError(f"{label}: kernels run in the device trace {ran} != {want}")
         if len(history) != epochs or not all(
             np.isfinite([h["loss"], h["val_loss"]]).all() for h in history
         ) or not np.isfinite(report.test_loss):
@@ -1198,6 +1228,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
                 f"baseline {report.gilbert_mae:.2f}")
         for k in totals:
             totals[k] += got[k]
+            traced_totals[k] += ran[k]
         if window == T:
             models.append((model_name, report.result.model))
         else:
@@ -1211,7 +1242,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, float]:
     for model_name, model in models:
         check_gradients(torch, model_name, model, x[:TRAIN_BATCH], y[:TRAIN_BATCH])
         steady_steps(torch, model_name, model, x, y, smi)
-    return totals, mae_256
+    return totals, traced_totals, mae_256
 
 
 def check_gradients(torch, model_name, model, x, y) -> None:
@@ -1375,6 +1406,81 @@ def device_launches(prof) -> dict:
     return {evt.key: evt.count for evt in prof.key_averages()
             if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
             and not getattr(evt, "is_user_annotation", False)}
+
+
+# The kernels each wrapper's call runs on the device, by a part of the name
+# the profiler gives them: one name of each tuple, once a call (lstm_bwd's
+# call runs all three of its kernels; the others one of two designs).
+DEVICE_KERNELS = {
+    "lstm_fwd": (("lstm_fwd_f32_persistent",),),
+    "lstm_bwd": (("lstm_bwd_gates_kernel",), ("lstm_bwd_chain_kernel",),
+                 ("lstm_bwd_wgrad_kernel",)),
+    "mae_clip": (("mae_clip_narrow_kernel", "mae_clip_wide_kernel"),),
+    "mae_clip_grad": (("mae_clip_grad_kernel",),),
+    "flash_fwd": (("flash_fwd_short_kernel", "flash_fwd_tc_kernel"),),
+    "flash_dq": (("flash_dq_short_kernel", "flash_dq_tc_kernel"),),
+    "flash_dkv": (("flash_dkv_short_kernel", "flash_dkv_tc_kernel"),),
+    "ring_round_fwd": (("ring_round_fwd_short", "ring_round_fwd_tc"),),
+    "ring_round_bwd": (("ring_round_bwd_short", "ring_round_bwd_tc"),),
+}
+
+
+def traced_launches(prof) -> dict:
+    """Each wrapper's calls in a profiler window as the device ran them:
+    its kernels' executions in the device trace (CUPTI, which also records
+    the kernel nodes of a CUDA graph's replays), by name. Raises if the
+    kernels of one call ran unequal numbers of times."""
+    device = device_launches(prof)
+    out = {}
+    for wrapper, parts in DEVICE_KERNELS.items():
+        runs = [sum(n for key, n in device.items() if any(a in key for a in names))
+                for names in parts]
+        if len(set(runs)) != 1:
+            raise AssertionError(f"{wrapper}: its kernels {parts} ran {runs} times")
+        out[wrapper] = runs[0]
+    return out
+
+
+# The profiler dropped the last kernels of a traced run now and then (once
+# the last 6 of attention@256's counted run). Idle time and a fence of
+# TRACE_FENCE small kernels before the window closes keep the traced work
+# off its end.
+TRACE_MARGIN_S = 0.25
+TRACE_FENCE = 256
+
+
+def traced(torch, fn):
+    """``fn()`` under ``torch.profiler`` (host and device), the window
+    closed after TRACE_MARGIN_S of idle and a fence of TRACE_FENCE small
+    kernels: (its result, ``traced_launches`` of the window). Logs the
+    window's last device events when a wrapper's kernels ran unequally."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fence = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        result = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(TRACE_FENCE):
+            fence.add_(1)
+        torch.cuda.synchronize()
+    try:
+        return result, traced_launches(prof)
+    finally:
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        fenced = sum(1 for e in events[-TRACE_FENCE:] if "add" in e.name.lower()
+                     or "elementwise" in e.name.lower())
+        ours = [e for e in events if any(a in e.name for parts in DEVICE_KERNELS.values()
+                                        for names in parts for a in names)]
+        log(f"[trace] window: {len(events)} device events, {fenced} of the last "
+            f"{TRACE_FENCE} elementwise (the fence); the port's kernels from "
+            f"{ours[0].time_range.start / 1e3 if ours else 0:.1f} to "
+            f"{ours[-1].time_range.end / 1e3 if ours else 0:.1f} ms, last event ends "
+            f"{events[-1].time_range.end / 1e3 if events else 0:.1f} ms")
 
 
 def lstm_steps(root: str) -> int:
@@ -1634,12 +1740,13 @@ def ring_ranks(mesh, root: str) -> dict:
     for k in KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    report = train(_ring_train_config(root, mesh))
-    torch.cuda.synchronize()
+    report, ran = traced(torch, lambda: train(_ring_train_config(root, mesh)))
     out["train"] = {
-        "seconds": time.perf_counter() - t0, "launches": counts(), "writes": writes,
+        "seconds": time.perf_counter() - t0, "launches": counts(), "traced": ran,
+        "writes": writes,
         "history": report.result.history, "test_loss": report.test_loss,
         "test_mae": report.test_mae, "gilbert_mae": report.gilbert_mae,
+        "program": (report.epoch_program, report.epoch_program_reason),
         "params": {n: p.detach().cpu().numpy()
                    for n, p in report.result.model.named_parameters()},
     }
@@ -1744,9 +1851,294 @@ def _rank_sp(torch, mesh) -> np.ndarray:
     return y.cpu().numpy()
 
 
+# The graphed epoch against the per-batch one: final parameters at most this
+# far apart, relative to each tensor's largest value.
+GRAPH_REL = 1e-6
+GRAPH_MODELS = ("lstm", "stacked_lstm", "attention")
+# Host calls that put work on the device, as the profiler names them.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                     "cudaGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync", "cuLaunchKernel",
+                     "cuLaunchKernelEx")
+
+
+def host_launches(prof) -> dict:
+    """Host calls in a profiler window that put work on the device, by name."""
+    return {evt.key: evt.count for evt in prof.key_averages() if evt.key in HOST_LAUNCH_CALLS}
+
+
+def _seeded_model(torch, model_name: str, **kwargs):
+    from tpuflow_torch.models import build_model
+
+    model = build_model(model_name, len(FEATURES), window=T, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.cuda()
+
+
+def phase_graph(torch, smi: str) -> None:
+    """The epoch program on the card, after the counted runs: graphed against
+    per-batch epochs, a captured cooperative ``lstm_fwd``, dropout under
+    replay, the ring's refusal, and both programs timed."""
+    from tpuflow_torch.data.pipeline import prepare_windowed
+    from tpuflow_torch.data.synthetic import generate_wells
+
+    splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
+                              window=T, seed=0, teacher_forcing=True)
+    for model_name in GRAPH_MODELS:
+        graph_against_per_batch(torch, model_name, splits)
+    graph_lstm_fwd_repeat(torch)
+    graph_dropout(torch)
+    graph_refuses_a_ring(torch)
+    for model_name in GRAPH_MODELS:
+        time_programs(torch, model_name, splits, smi)
+
+
+def graph_against_per_batch(torch, model_name: str, splits) -> None:
+    """One epoch per-batch and one graphed, each from the same seeded weights
+    and a fresh ``keras_sgd(decay=0.1)``, each under the profiler: the
+    kernels run in the two device traces equal, each equal to its run's
+    wrapper counts; final parameters bitwise equal or at most GRAPH_REL
+    apart."""
+    from tpuflow_torch.kernels import KERNELS
+    from tpuflow_torch.train import FitConfig, fit
+    from tpuflow_torch.train.optim import keras_sgd
+
+    finals, counts, runs, losses = [], [], [], []
+    for jit_epoch in (False, True):
+        model = _seeded_model(torch, model_name)
+        for k in KERNELS.values():
+            k.launches = 0
+        result, ran = traced(torch, lambda: fit(
+            model, splits.train, splits.val,
+            FitConfig(max_epochs=1, batch_size=TRAIN_BATCH, verbose=False, health=None,
+                      jit_epoch=jit_epoch),
+            optimizer=keras_sgd(decay=0.1)))
+        counts.append({n: k.launches for n, k in KERNELS.items()})
+        runs.append(ran)
+        losses.append(result.history[0]["loss"])
+        finals.append({n: p.detach().clone() for n, p in model.state_dict().items()})
+    bitwise = all(torch.equal(finals[0][n], finals[1][n]) for n in finals[0])
+    rel = max(float((finals[1][n] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+              for n, w in finals[0].items())
+    log(f"[graph] {model_name:12s} one epoch per-batch vs graphed (keras_sgd decay 0.1): "
+        f"final params {'bitwise equal' if bitwise else 'not bitwise equal'}, largest "
+        f"relative difference {rel:.3e} (tolerance {GRAPH_REL}); mean loss "
+        f"{losses[0]:.8f} vs {losses[1]:.8f}; kernels run in the device trace {runs[0]} "
+        f"vs {runs[1]}; wrapper counts {counts[0]} vs {counts[1]}")
+    if runs[0] != runs[1]:
+        raise AssertionError(f"{model_name}: graphed epoch ran {runs[1]} != per-batch {runs[0]}")
+    if counts != runs:
+        raise AssertionError(f"{model_name}: wrapper counts {counts} != device trace {runs}")
+    if not rel <= GRAPH_REL:
+        raise AssertionError(f"{model_name}: graphed epoch is {rel:.3e} from the per-batch one")
+
+
+def graph_lstm_fwd_repeat(torch) -> None:
+    """``lstm_fwd`` (a cooperative launch) captured into a CUDA graph and
+    replayed REPEAT_LAUNCHES times, its output poisoned before each: every
+    replay bitwise equal to an eager call; each replay counts one launch."""
+    from tpuflow_torch.kernels import count_captured
+    from tpuflow_torch.kernels.lstm import lstm_scan
+
+    dev = torch.device("cuda")
+    for B, Hn in REPEAT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(B + Hn)
+        xw = torch.randn((T, B, 4 * Hn), generator=gen, device=dev) * 0.5
+        wh = torch.randn((Hn, 4 * Hn), generator=gen, device=dev) / Hn ** 0.5
+        b = torch.randn(4 * Hn, generator=gen, device=dev) * 0.1
+        want = lstm_scan(xw, wh, b)
+        graph, out = torch.cuda.CUDAGraph(), []
+
+        def capture():
+            with torch.cuda.graph(graph):
+                out.append(lstm_scan(xw, wh, b))
+
+        replayed = count_captured(capture)
+        before = lstm_scan.launches
+        bad = []
+        for i in range(REPEAT_LAUNCHES):
+            out[0].fill_(float("nan"))
+            graph.replay()
+            replayed(1)
+            if not torch.equal(out[0], want):
+                bad.append(i)
+        torch.cuda.synchronize()
+        log(f"[graph] lstm_fwd captured (cooperative launch) at T={T}, B={B}, H={Hn}: "
+            f"{REPEAT_LAUNCHES} replays, {len(bad)} differ from the eager call; launches "
+            f"counted {lstm_scan.launches - before}")
+        if bad or lstm_scan.launches - before != REPEAT_LAUNCHES:
+            raise AssertionError(f"lstm_fwd replays {bad[:10]} differ from the eager call")
+
+
+def graph_dropout(torch) -> None:
+    """With dropout, a captured training forward of the attention regressor
+    draws new masks on every replay from its registered generator."""
+    dev = torch.device("cuda")
+    model = _seeded_model(torch, "attention", dropout_rate=0.1)
+    model.train()
+    model.dropout_generator = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((TRAIN_BATCH, T, len(FEATURES)), generator=model.dropout_generator,
+                    device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        model(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(model.dropout_generator)
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = model(x)
+    outs = []
+    for _ in range(3):
+        graph.replay()
+        outs.append(out.clone())
+    with torch.no_grad():
+        eager = model(x)
+    same = [bool(torch.equal(outs[i], outs[j])) for i, j in ((0, 1), (1, 2), (0, 2))]
+    log(f"[graph] attention with dropout 0.1: 3 replays of a captured training forward, "
+        f"pairs equal {same}; an eager call after them equals none: "
+        f"{not any(torch.equal(eager, o) for o in outs)}")
+    if any(same):
+        raise AssertionError("replays of a graph with dropout drew the same masks")
+
+
+def graph_refuses_a_ring(torch) -> None:
+    """An explicit ``jit_epoch=True`` with a ring raises before it trains."""
+    from tpuflow_torch.api.config import TrainJobConfig
+    from tpuflow_torch.api.train_api import train
+    from tpuflow_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(group=None, size=RING_RANKS, rank=0, device=torch.device("cuda", 0),
+                backend="gloo")
+    config = TrainJobConfig(model="attention", window=RING_TRAIN_WINDOW, jit_epoch=True,
+                            model_kwargs={"backend": "ring", "mesh": mesh}, verbose=False)
+    try:
+        train(config)
+    except ValueError as e:
+        log(f"[graph] jit_epoch=True with a ring raises: {e}")
+        return
+    raise AssertionError("jit_epoch=True with a ring did not raise")
+
+
+def time_programs(torch, model_name: str, splits, smi: str,
+                  batch: int = TRAIN_BATCH) -> dict:
+    """Both epoch programs of one model in this process, on one optimizer:
+    an epoch of the train split at ``batch`` (its one read-back included),
+    warm, then three epochs of each in turns on the host clock, then one
+    profiled epoch of each: device busy and idle share, host calls that
+    put work on the device, and device launches, a step. Returns each
+    program's median host-clock ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.data.pipeline import epoch_order
+    from tpuflow_torch.train.loop import _per_batch_epoch
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_epoch_step, make_train_step
+
+    dev = torch.device("cuda")
+    model = _seeded_model(torch, model_name)
+    opt = keras_sgd().bind(model.parameters())
+    x = torch.from_numpy(splits.train.x).to(dev)
+    y = torch.from_numpy(splits.train.y).to(dev)
+    order = epoch_order(splits.train.n, batch, seed=1)
+    steps = len(order) // batch
+    train_step = make_train_step(model, opt, mae_clip)
+    epoch_step = make_epoch_step(model, opt, mae_clip, x, y)
+    programs = {
+        "per_batch": lambda: _per_batch_epoch(train_step, x, y, order, batch, dev),
+        "jit_epoch": lambda: float(epoch_step(torch.from_numpy(order).view(steps, -1))),
+    }
+    wall = {name: [] for name in programs}
+    for fn in programs.values():
+        fn()  # warm; the graphed program captures here
+    for _ in range(3):
+        for name, fn in programs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            wall[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    for name, fn in programs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = device_ms_by_kernel(prof)
+        busy_ms = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else "not measured"
+        host = host_launches(prof)
+        device = device_launches(prof)
+        log(f"[graph] {model_name:12s} {name:9s} batch {batch} host-clock step "
+            f"{statistics.median(wall[name]):.4f} ms (median of 3 epochs of {steps} steps: "
+            + ", ".join(f"{w:.4f}" for w in wall[name])
+            + f"); profiled epoch wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+            f"({busy_ms / steps:.4f} a step) idle_share={idle}; host launches a step "
+            f"{sum(host.values()) / steps:.2f} ("
+            + "; ".join(f"{k}={n / steps:g}" for k, n in sorted(host.items()))
+            + f"); device launches a step {sum(device.values()) / steps:.2f}; largest "
+            "kernels (ms a step): " + "; ".join(f"{k[:50]}={v / steps:.4f}" for k, v in top)
+            + f" (card: {smi})")
+    return {name: statistics.median(w) for name, w in wall.items()}
+
+
+# --program-sweep: the batches, and the train steps an epoch at least.
+SWEEP_BATCHES = (20, 256, 1024, 4096)
+SWEEP_MIN_STEPS = 16
+# A batch where per-batch steps beat the graph by more than this share is
+# the crossover (the JAX package's rule, benchmarks/sweep_epoch_program.py).
+SWEEP_MARGIN = 0.03
+
+
+def program_sweep() -> int:
+    """``--program-sweep``: both epoch programs (``time_programs``) of
+    LSTM-64, the stacked LSTM and attention at each of SWEEP_BATCHES, on
+    synthetic wells enough for SWEEP_MIN_STEPS train steps an epoch (at
+    least 8 wells); then the crossover by the JAX package's rule: the
+    smallest batch at which per-batch steps run more samples a second than
+    the graph by more than SWEEP_MARGIN for some model, else none (the
+    scanned program at every swept batch). Prints one JSON line."""
+    import math
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from tpuflow_torch.data.pipeline import prepare_windowed
+    from tpuflow_torch.data.synthetic import generate_wells
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    log(f"[sweep] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase_build()
+    per_well = 0.64 * (512 - T + 1)
+    rows, crossover = [], None
+    for batch in SWEEP_BATCHES:
+        n_wells = max(8, math.ceil(SWEEP_MIN_STEPS * batch / per_well))
+        splits = prepare_windowed(generate_wells(n_wells=n_wells, steps=512, seed=0),
+                                  window=T, seed=0, teacher_forcing=True)
+        row = {"batch": batch, "wells": n_wells, "train_rows": splits.train.n}
+        for model_name in GRAPH_MODELS:
+            ms = time_programs(torch, model_name, splits, smi, batch=batch)
+            row[model_name] = {name: round(v, 4) for name, v in ms.items()}
+            if crossover is None and ms["jit_epoch"] > (1 + SWEEP_MARGIN) * ms["per_batch"]:
+                crossover = batch
+        rows.append(row)
+        log(f"[sweep] batch {batch} ({n_wells} wells, {splits.train.n} train rows), "
+            "host-clock ms a step per_batch / jit_epoch: " + "; ".join(
+                f"{m} {row[m]['per_batch']} / {row[m]['jit_epoch']}" for m in GRAPH_MODELS))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": smi,
+                      "compute_dtype": "f32", "crossover_batch": crossover,
+                      "scan_always": crossover is None, "rows": rows}))
+    return 0
+
+
 def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
     """The ring on RING_RANKS ranks against single-card references in this
-    process; returns rank 0's kernel launches in the ring training."""
+    process; returns rank 0's kernel launches in the ring training: its
+    wrapper counts and the kernels run in its device trace."""
     from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.kernels import KERNELS
     from tpuflow_torch.parallel import spawn
@@ -1806,12 +2198,19 @@ def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
     log(f"[ring] train at window {RING_TRAIN_WINDOW}, 1 epoch, {t0['seconds']:.2f} s on rank 0; "
         f"data {sizes}; test_loss={t0['test_loss']:.6f} test_mae={t0['test_mae']:.2f} "
         f"gilbert_mae={t0['gilbert_mae']:.2f} stb/day; single-card run {single_mae:.2f} "
-        f"(tolerance {RING_MAE_REL:.0%}); launches {t0['launches']}, expected {want}; "
+        f"(tolerance {RING_MAE_REL:.0%}); launches {t0['launches']}, expected {want}, in "
+        f"the device trace {t0['traced']}; "
         "writes " + ", ".join(f"rank {r['rank']} {r['train']['writes']}" for r in ranks))
+    log(f"[ring] epoch program (AUTO) {t0['program'][0]}: {t0['program'][1]}")
     for r in ranks:
         tr = r["train"]
+        if tr["program"][0] != "per_batch":
+            raise AssertionError(f"ring train rank {r['rank']} ran {tr['program'][0]}")
         if tr["launches"] != want:
             raise AssertionError(f"ring train rank {r['rank']}: launches {tr['launches']} != {want}")
+        if tr["traced"] != want:
+            raise AssertionError(f"ring train rank {r['rank']}: kernels run in the device "
+                                 f"trace {tr['traced']} != {want}")
         if not (np.isfinite([[h["loss"], h["val_loss"]] for h in tr["history"]]).all()
                 and np.isfinite(tr["test_loss"])):
             raise AssertionError(f"ring train rank {r['rank']}: non-finite losses")
@@ -1852,7 +2251,7 @@ def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
         f"vs lstm_scan: max abs err by rank {[f'{e:.2e}' for e in errs]} (tolerance {SP_ATOL})")
     if max(errs) > SP_ATOL:
         raise AssertionError(f"the SP ring disagrees with lstm_scan: {errs}")
-    return t0["launches"]
+    return t0["launches"], t0["traced"]
 
 
 def _columns(n_wells: int, steps: int, seed: int, well_ids: bool) -> dict:
@@ -2061,21 +2460,22 @@ def main() -> int:
     phase_build()
     records = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="tpuflow_torch_smoke_") as root:
-        launches, mae_256 = phase_train(torch, root, smi)
-        ring_launches = phase_ring(torch, root, smi, mae_256)
+        launches, ran, mae_256 = phase_train(torch, root, smi)
+        phase_graph(torch, smi)
+        ring_launches, ring_ran = phase_ring(torch, root, smi, mae_256)
         serve_launches = phase_serve(torch, root, smi)
     missed = [k for k in ("lstm_fwd", "flash_fwd") if serve_launches[k] == 0]
     if missed:
         raise AssertionError(f"not launched on the serving path: {missed}")
     for name in ("ring_round_fwd", "ring_round_bwd"):
-        launches[name] = ring_launches[name]
+        launches[name], ran[name] = ring_launches[name], ring_ran[name]
     missed = [k for k, n in launches.items() if n == 0]
     if missed:
         raise AssertionError(f"not launched on the training paths: {missed}")
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"tpuflow_torch/kernels/csrc/{source}.cu", "replaces": replaces,
-         "launches": launches[name], **records[name]}
+         "launches": launches[name], "traced_launches": ran[name], **records[name]}
         for name, source, replaces in (
             ("lstm_fwd", "lstm_fwd", "tpuflow/kernels/lstm.py:68"),
             ("lstm_bwd", "lstm_bwd", "tpuflow/kernels/lstm.py:97"),
@@ -2104,4 +2504,6 @@ if __name__ == "__main__":
         sys.exit(flash_loss_steps(sys.argv[2]))
     if sys.argv[1:2] == ["--ring-steps"]:
         sys.exit(ring_steps(sys.argv[2]))
+    if sys.argv[1:2] == ["--program-sweep"]:
+        sys.exit(program_sweep())
     sys.exit(main())

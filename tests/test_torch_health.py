@@ -6,13 +6,18 @@ port's ``tpuflow_torch.obs.health.NumericsWatchdog``, and the two anomaly
 trails must be equal. The port's tuning is fixed at JAX's defaults; the
 warm-up case sets JAX's ``warmup_epochs`` and the port's ``WARMUP_EPOCHS``
 alike. Then ``train()`` on the CPU with a run whose loss
-goes non-finite records it in the report, and the off values train as off.
+goes non-finite records it in the report, under per-batch steps (losses and
+gradient norms) and under the scanned epoch (its mean loss alone, the same
+trail as the JAX package's ``train()`` gives), and the off values train as
+off.
 """
 
 import math
 
 import pytest
 
+from tpuflow.api.config import TrainJobConfig as JaxTrainJobConfig
+from tpuflow.api.train_api import train as jax_train
 from tpuflow.obs.health import NumericsWatchdog as JaxWatchdog
 from tpuflow_torch.api.config import TrainJobConfig
 from tpuflow_torch.api.train_api import train
@@ -75,13 +80,29 @@ DIVERGING = dict(SMALL, optimizer_kwargs={"learning_rate": NAN})
 
 
 def test_non_finite_run_is_recorded_in_the_report():
-    report = train(TrainJobConfig(**DIVERGING), device="cpu")
+    report = train(TrainJobConfig(**DIVERGING, jit_epoch=False), device="cpu")
+    assert report.epoch_program == "per_batch"
     kinds = {a["kind"] for a in report.anomalies}
     assert kinds == {"nan_loss", "nan_grad"}
     assert {a["epoch"] for a in report.anomalies} == {1, 2}
     assert report.result.anomalies == report.anomalies
     assert report.recompiles is None and report.result.recompiles is None
     assert "Numerics anomalies: nan_grad=2, nan_loss=2" in report.summary()
+
+
+@pytest.mark.parametrize("jit_epoch", [True, None])
+def test_scanned_program_trail_matches_jax(jit_epoch):
+    """The scanned epoch hands the watchdog its mean loss and no gradient
+    norms, as JAX's does (``loop.py:489``): the trail of the diverging run
+    equals the JAX package's under ``jit_epoch=True``, explicit or AUTO's
+    choice at batch 5."""
+    report = train(TrainJobConfig(**DIVERGING, jit_epoch=jit_epoch), device="cpu")
+    assert report.epoch_program == "jit_epoch"
+    want = jax_train(JaxTrainJobConfig(**DIVERGING, jit_epoch=True, n_devices=1))
+    assert want.epoch_program == "jit_epoch"
+    assert _trail(report.anomalies) == _trail(want.anomalies)
+    assert {a["kind"] for a in report.anomalies} == {"nan_loss"}
+    assert "Numerics anomalies: nan_loss=2" in report.summary()
 
 
 @pytest.mark.parametrize("health", ["", "none", "off", None])

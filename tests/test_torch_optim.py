@@ -74,7 +74,25 @@ def test_clip_norm_matches_optax_clip_by_global_norm(clip_norm):
 
 def test_schedule_counts_from_zero():
     spec = keras_sgd(learning_rate=0.1, decay=1.0)
-    assert [spec.schedule(k) for k in range(3)] == [0.1, 0.05, 0.1 / 3]
+    got = [spec.schedule(torch.tensor(k)).item() for k in range(3)]
+    assert got == [float(np.float32(0.1) / np.float32(d)) for d in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("decay", [1e-6, 0.1, 0.5])
+def test_device_schedule_is_optax_f32_schedule(decay):
+    """The learning rate the port computes on the device from its update
+    count, as a captured step replays it, against optax's: the update
+    optax's keras_sgd (momentum 0) applies to a unit gradient is ``-lr_k``.
+    Both in f32, equal to within one f32 rounding."""
+    tx = jax_build_optimizer("keras_sgd", learning_rate=0.05, momentum=0.0, decay=decay)
+    p = {"w": np.zeros(1, np.float32)}
+    state = tx.init(p)
+    spec = keras_sgd(learning_rate=0.05, momentum=0.0, decay=decay)
+    for k in range(40):
+        updates, state = tx.update({"w": np.ones(1, np.float32)}, state, p)
+        got = spec.schedule(torch.tensor(k, dtype=torch.int32))
+        assert got.dtype == torch.float32 and got.dim() == 0
+        np.testing.assert_allclose(-got.numpy(), np.asarray(updates["w"])[0], rtol=1.2e-7)
 
 
 def test_refusals():

@@ -1,8 +1,12 @@
 """The port's training path against the JAX package's, on the CPU.
 
 ``fit`` starts both packages from the same flax-initialised params (copied
-with ``params_from_flax``) on byte-identical data and batch order, and
-compares per-epoch losses and the final params. ``train()`` runs end to end
+with ``params_from_flax``) on byte-identical data and batch order, under
+each epoch program (per-batch steps, and the scanned epoch: JAX's
+``lax.scan``, the port's ``make_epoch_step``), and compares per-epoch
+losses and the final params. The optimizer decays its learning rate
+steeply (``keras_sgd(decay=0.1)``), so that a rate frozen at one update
+would show. ``train()`` runs end to end
 on the CPU: report, save-best artifact served by the port's ``Predictor``,
 and the same params read by the JAX package's ``StoreCheckpointer`` giving
 the JAX model the same predictions. Small sizes: hidden 8, window 8, batch
@@ -49,13 +53,18 @@ LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-5
 
 
-@pytest.mark.parametrize("model_name", ["lstm", "stacked_lstm"])
-def test_fit_matches_jax_fit_from_copied_params(model_name):
+@pytest.mark.parametrize("model_name,jit_epoch", [
+    pytest.param("lstm", False, id="lstm"),
+    pytest.param("stacked_lstm", False, id="stacked_lstm"),
+    pytest.param("lstm", True, id="lstm-jit_epoch"),
+    pytest.param("stacked_lstm", True, id="stacked_lstm-jit_epoch"),
+])
+def test_fit_matches_jax_fit_from_copied_params(model_name, jit_epoch):
     splits = jax_prepare_windowed(
         jax_generate_wells(n_wells=2, steps=64, seed=0), window=8, seed=0,
         teacher_forcing=True,
     )
-    kw = {"learning_rate": 0.01}
+    kw = {"learning_rate": 0.01, "decay": 0.1}
     jax_model = jax_build_model(model_name, hidden=8)
     state = create_state(
         jax_model, jax.random.PRNGKey(1), splits.train.x[:2],
@@ -63,13 +72,14 @@ def test_fit_matches_jax_fit_from_copied_params(model_name):
     )
     params0 = jax.device_get(state.params)
     want = jax_fit(state, splits.train, splits.val, JaxFitConfig(
-        max_epochs=3, batch_size=5, seed=0, verbose=False, jit_epoch=False,
+        max_epochs=3, batch_size=5, seed=0, verbose=False, jit_epoch=jit_epoch,
     ))
 
     port = build_model(model_name, 5, hidden=8)
     port.load_state_dict(params_from_flax(params0))
     got = fit(port, splits.train, splits.val,
-              FitConfig(max_epochs=3, batch_size=5, seed=0, verbose=False),
+              FitConfig(max_epochs=3, batch_size=5, seed=0, verbose=False,
+                        jit_epoch=jit_epoch),
               optimizer=wrap_optimizer(build_optimizer("keras_sgd", **kw)))
 
     assert got.epochs_ran == want.epochs_ran == 3
@@ -99,7 +109,8 @@ def test_train_end_to_end_on_cpu(tmp_path):
     assert [h["epoch"] for h in hist] == [1, 2] and report.result.epochs_ran == 2
     assert all(np.isfinite([h["loss"], h["val_loss"]]).all() for h in hist)
     assert np.isfinite(report.test_loss) and report.test_mae > 0
-    assert report.epoch_program == "per_batch" and report.device == "cpu"
+    assert report.epoch_program == "jit_epoch" and report.device == "cpu"
+    assert report.epoch_program_reason.startswith("batch_size 5 < heuristic crossover 256")
     assert "Gilbert-baseline MAE" in report.summary()
 
     # The physical baseline is computed on the JAX package's test rows.
@@ -199,6 +210,6 @@ def test_n_devices_none_refuses_several_cards(monkeypatch):
 def test_health_off_and_jit_epoch_are_accepted(tmp_path):
     report = train(TrainJobConfig(model="lstm", max_epochs=1, health="off",
                                   jit_epoch=True, **SMALL), device="cpu")
-    assert report.epoch_program == "per_batch"
-    assert "item 12" in report.epoch_program_reason
+    assert report.epoch_program == "jit_epoch"
+    assert report.epoch_program_reason == "explicitly set in config"
     assert torch.is_tensor(next(report.result.model.parameters()))

@@ -50,8 +50,9 @@ class TrainJobConfig:
     accumulate_steps: int = 1  # > 1 is not ported yet
     seed: int = 0
     verbose: bool = True
-    # Epoch program: the port runs per-batch steps whatever this says; the
-    # scanned epoch becomes CUDA-graph work (ROADMAP.md Queue 1 item 12).
+    # Epoch program: None (auto) = train/autotune.py's choice; True = the
+    # scanned epoch (a CUDA graph of the train step on a GPU); False =
+    # per-batch steps.
     jit_epoch: bool | None = None
 
     # --- fault tolerance (not ported yet) ---

@@ -14,6 +14,13 @@ trains the same replicated model on the same batches, so their losses,
 early stopping and final parameters agree; only the group's rank 0 writes
 the checkpoints and the sidecar, and the ranks meet at a barrier after it.
 
+The epoch program is resolved as in the JAX package: ``jit_epoch=None``
+("auto") through ``tpuflow_torch.train.autotune.choose_epoch_program``
+(the scanned epoch, a CUDA graph of the train step on a GPU, at every
+batch on a card whose sweep measured it faster, as the H100's did, else
+below the heuristic crossover batch of 256; per-batch steps on a ring), an explicit
+True/False as given; the choice is ``TrainReport.epoch_program``.
+
 The model is initialised by the port (flax's initialisers in distribution,
 numbers from ``torch.Generator().manual_seed(seed)``), so a seed does not
 give the JAX package's initial weights; the data, the split and the
@@ -48,6 +55,7 @@ from tpuflow_torch.models import build_model
 from tpuflow_torch.models.registry import MODELS
 from tpuflow_torch.obs.health import HEALTH_OFF, HEALTH_POLICIES
 from tpuflow_torch.parallel.mesh import DATA_AXIS
+from tpuflow_torch.train.autotune import ProgramChoice, choose_epoch_program
 from tpuflow_torch.train.loop import FitConfig, FitResult, evaluate, fit
 from tpuflow_torch.train.optim import build_optimizer, wrap_optimizer
 
@@ -113,7 +121,7 @@ class TrainReport:
     gilbert_mae: float | None  # physical-baseline MAE on the same test rows
     time_elapsed: float
     samples_per_sec: float
-    # Which epoch program ran and why: always "per_batch" in the port.
+    # Which epoch program ran ("jit_epoch" or "per_batch") and why.
     epoch_program: str = ""
     epoch_program_reason: str = ""
     device: str = ""  # torch.cuda.get_device_name, or "cpu"
@@ -175,16 +183,25 @@ def _gilbert_mae_last_step(names, raw_last, y_raw) -> float | None:
     return _gilbert_mae(raw_last[:, ip], raw_last[:, ic], raw_last[:, ig], y_raw)
 
 
-def _epoch_program(config: TrainJobConfig) -> tuple[str, str]:
-    if config.jit_epoch:
-        return "per_batch", (
-            "jit_epoch=True asks for the scanned epoch, which is not ported "
-            "(ROADMAP.md Queue 1 item 12); per-batch steps run the same math "
-            "(dropout masks come from the port's own generator either way)"
-        )
+def _epoch_program(config: TrainJobConfig, mesh, dev: torch.device) -> ProgramChoice:
+    """Resolve ``jit_epoch`` as ``tpuflow/api/train_api.py:651-667`` does:
+    an explicit True/False is honoured, None ("auto") is
+    ``choose_epoch_program``'s. A ring cannot run the scanned program."""
     if config.jit_epoch is None:
-        return "per_batch", "auto: per-batch steps are the port's one epoch program"
-    return "per_batch", "explicitly set in config"
+        return choose_epoch_program(
+            config.batch_size, stream=config.stream, tp=config.tp, pp=config.pp,
+            ep=config.ep, ring=mesh is not None,
+            device_kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+            compute_dtype=config.precision,
+        )
+    if config.jit_epoch and mesh is not None:
+        raise ValueError(
+            "jit_epoch=True cannot train a ring (backend='ring'): the scanned "
+            "epoch is a CUDA graph of the train step, and the ring's "
+            "torch.distributed collectives cannot be captured in one; pass "
+            "jit_epoch=False or None"
+        )
+    return ProgramChoice(bool(config.jit_epoch), "explicitly set in config", "explicit")
 
 
 def _prepare_data(config: TrainJobConfig, schema: Schema):
@@ -226,6 +243,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     mesh = config.model_kwargs.get("mesh") if config.model_kwargs.get("backend") == "ring" else None
     _refuse_every_card(config, mesh, device)
     dev = resolve_device(mesh.device if device is None and mesh is not None else device)
+    program = _epoch_program(config, mesh, dev)
     if config.loss not in LOSSES:
         raise ValueError(f"unknown loss {config.loss!r}; known: {sorted(LOSSES)}")
     if config.storage_path:
@@ -241,7 +259,6 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     target = config.target or SYNTHETIC_TARGET
     schema = Schema.from_cli(names, types, target)
     loss_fn = LOSSES[config.loss]
-    program, reason = _epoch_program(config)
     spec = wrap_optimizer(
         build_optimizer(config.optimizer, **config.optimizer_kwargs),
         clip_norm=config.clip_norm,
@@ -257,6 +274,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     model.reset_parameters(torch.Generator().manual_seed(config.seed))
     model.to(dev)
     if hasattr(model, "dropout_generator"):
+        # The epoch program's CUDA graph registers this generator, so each
+        # replay draws new masks.
         model.dropout_generator = torch.Generator(device=dev).manual_seed(config.seed)
 
     result = fit(
@@ -273,6 +292,7 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             model_name=config.model,
             verbose=config.verbose,
             health=config.health,
+            jit_epoch=program.jit_epoch,
         ),
         optimizer=spec,
     )
@@ -316,8 +336,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
         gilbert_mae=gilbert_test,
         time_elapsed=time.monotonic() - t0,
         samples_per_sec=result.samples_per_sec,
-        epoch_program=program,
-        epoch_program_reason=reason,
+        epoch_program=program.name,
+        epoch_program_reason=program.reason,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         anomalies=result.anomalies,
         recompiles=result.recompiles,

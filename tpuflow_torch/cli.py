@@ -45,6 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic-wells", type=int, default=8)
     p.add_argument("--synthetic-steps", type=int, default=512)
+    p.add_argument("--jit-epoch", action="store_true", default=None, dest="jit_epoch",
+                   help="run each epoch as the scanned program (a CUDA graph of the "
+                        "train step, replayed once a batch); default AUTO picks it "
+                        "below batch 256 (tpuflow_torch/train/autotune.py)")
+    p.add_argument("--no-jit-epoch", action="store_false", dest="jit_epoch",
+                   help="force per-batch stepping")
     p.add_argument("--device", default=None,
                    help="cuda (default; fails without a GPU), cuda:N or cpu")
     p.add_argument("--quiet", action="store_true")
@@ -98,6 +104,7 @@ def main(argv=None) -> int:
         optimizer=args.optimizer,
         clip_norm=args.clip_norm,
         seed=args.seed,
+        jit_epoch=args.jit_epoch,
         synthetic_wells=args.synthetic_wells,
         synthetic_steps=args.synthetic_steps,
         verbose=not args.quiet,

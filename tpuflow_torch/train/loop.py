@@ -1,12 +1,22 @@
 """The fit loop: epochs, early stopping, save-best, timing.
 
-Counterpart of the per-batch program of ``tpuflow/train/loop.py``
-(``loop.py:493-531`` and ``:561-591``): up to ``max_epochs`` epochs of
-minibatch steps over ``batches(train_ds, batch, seed=seed + epoch)``, the
-losses read back once per epoch, validation, early stopping on val loss
-with patience, save-best into the store layout the port's ``Predictor``
-and the JAX package's ``StoreCheckpointer`` both read, and the numerics
-watchdog's ``warn`` policy after each epoch (``tpuflow_torch/obs/health.py``).
+Counterpart of ``tpuflow/train/loop.py``, with both of its epoch programs
+(``loop.py:479-531``):
+
+- per-batch (``FitConfig.jit_epoch=False``, the default): minibatch steps
+  over ``batches(train_ds, batch, seed=seed + epoch)``, each launched from
+  Python, their losses and gradient norms read back once per epoch;
+- ``jit_epoch``: the scanned epoch, ``make_epoch_step`` over the same
+  drop-remainder batches (``_stacked_epoch``, ``loop.py:736``); on a GPU
+  one train step captured as a CUDA graph and replayed once a batch, on
+  the CPU the same step in a loop. It reads back the epoch's mean loss and
+  nothing else, and the watchdog sees that mean and no gradient norms, as
+  in JAX.
+
+Then validation, early stopping on val loss with patience, save-best into
+the store layout the port's ``Predictor`` and the JAX package's
+``StoreCheckpointer`` both read, and the numerics watchdog's ``warn``
+policy after each epoch (``tpuflow_torch/obs/health.py``).
 
 The datasets are copied to the model's device once, and each epoch's batch
 order once per epoch, so the batch loop moves no host data and never waits
@@ -34,7 +44,7 @@ from tpuflow_torch.obs.health import HEALTH_OFF, NumericsWatchdog
 from tpuflow_torch.storage.checkpoint import StoreCheckpointer
 from tpuflow_torch.train.callbacks import EarlyStopping
 from tpuflow_torch.train.optim import OptimizerSpec, keras_sgd
-from tpuflow_torch.train.steps import make_eval_step, make_train_step
+from tpuflow_torch.train.steps import make_epoch_step, make_eval_step, make_train_step
 
 
 @dataclass
@@ -50,6 +60,8 @@ class FitConfig:
     verbose: bool = True
     # Numerics watchdog policy: "warn", or one of HEALTH_OFF.
     health: str | None = "warn"
+    # The scanned epoch program (a CUDA graph of the train step on a GPU).
+    jit_epoch: bool = False
 
 
 @dataclass
@@ -86,6 +98,8 @@ def fit(
     eval_step = make_eval_step(model, config.loss)
     x_train = torch.from_numpy(train_ds.x).to(device)
     y_train = torch.from_numpy(train_ds.y).to(device)
+    epoch_step = (make_epoch_step(model, opt, config.loss, x_train, y_train)
+                  if config.jit_epoch else None)
     ckpt = (
         StoreCheckpointer(config.storage_path, config.model_name)
         if config.storage_path else None
@@ -100,26 +114,23 @@ def fit(
     for epoch in range(1, config.max_epochs + 1):
         te = time.monotonic()
         order = epoch_order(train_ds.n, config.batch_size, seed=config.seed + epoch)
-        idx = torch.from_numpy(order).to(device)
-        losses, grad_norms = [], []
-        for s in range(0, len(order), config.batch_size):
-            rows = idx[s : s + config.batch_size]
-            # Device tensors only inside the batch loop: reading one back
-            # here would wait for the card once per step.
-            out = train_step(x_train[rows], y_train[rows])
-            losses.append(out["loss"])
-            grad_norms.append(out["grad_norm"])
-        if not losses:
+        if not len(order):
             raise ValueError(
                 f"epoch {epoch} yielded zero batch_size={config.batch_size} "
                 "batches — training would be a silent no-op reporting NaN loss "
                 "(split smaller than one batch?)"
             )
+        if epoch_step is not None:
+            # The epoch's one read-back: its mean loss (the scanned
+            # program returns no per-step values).
+            mean = epoch_step(torch.from_numpy(order).view(-1, config.batch_size))
+            epoch_losses, epoch_grads = [float(mean)], []
+            train_loss = epoch_losses[0]
+        else:
+            epoch_losses, epoch_grads = _per_batch_epoch(
+                train_step, x_train, y_train, order, config.batch_size, device)
+            train_loss = float(np.mean(epoch_losses))
         samples_seen += len(order)
-        # The epoch's one read-back: its losses and gradient norms together.
-        epoch_losses, epoch_grads = torch.stack(
-            [torch.stack(losses), torch.stack(grad_norms)]).cpu().tolist()
-        train_loss = float(np.mean(epoch_losses))
         if watchdog is not None:
             watchdog.observe_epoch(epoch, epoch_losses, epoch_grads)
             result.anomalies = watchdog.anomalies
@@ -145,6 +156,21 @@ def fit(
     result.time_elapsed = time.monotonic() - t0
     result.samples_per_sec = samples_seen / max(result.time_elapsed, 1e-9)
     return result
+
+
+def _per_batch_epoch(train_step, x_train, y_train, order, batch_size, device):
+    """One epoch of steps launched from Python; returns the steps' losses
+    and gradient norms as host floats, read back together."""
+    idx = torch.from_numpy(order).to(device)
+    losses, grad_norms = [], []
+    for s in range(0, len(order), batch_size):
+        rows = idx[s : s + batch_size]
+        # Device tensors only inside the batch loop: reading one back
+        # here would wait for the card once per step.
+        out = train_step(x_train[rows], y_train[rows])
+        losses.append(out["loss"])
+        grad_norms.append(out["grad_norm"])
+    return torch.stack([torch.stack(losses), torch.stack(grad_norms)]).cpu().tolist()
 
 
 def evaluate(

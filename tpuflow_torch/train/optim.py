@@ -15,7 +15,14 @@ base optimizer:
 - ``clip_by_global_norm`` as optax writes it: ``g / ||g|| * max`` when
   ``||g|| >= max``, with no epsilon (``torch.nn.utils.clip_grad_norm_``
   adds 1e-6 and differs);
-- the learning rate of the schedule, set before each update.
+- the learning rate of the schedule, computed before each update on the
+  device from the update count, which is a device tensor too.
+
+Nothing in ``step()`` reads a tensor back to the host, so a CUDA graph that
+captures one step replays the schedule as it advances
+(``tpuflow_torch/train/steps.py::make_epoch_step``): the Nesterov SGD is
+written here as ``torch._foreach_*`` ops that take the learning rate as a
+device tensor, and Adam and AdamW are built ``capturable`` on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ class OptimizerSpec:
     clip: ``bind(params)`` builds it."""
 
     make: Callable[[list], torch.optim.Optimizer]
-    schedule: Callable[[int], float] | None = None  # lr before update k
+    # lr before update k, a device f32 scalar from the device count k.
+    schedule: Callable[[torch.Tensor], torch.Tensor] | None = None
     clip_norm: float = 0.0
 
     def bind(self, params) -> "Optimizer":
@@ -48,13 +56,20 @@ class Optimizer:
         self.spec = spec
         self.params = params
         self.base = spec.make(params)
-        self.count = 0  # updates applied, optax's schedule count
+        # Updates applied, optax's schedule count, on the parameters' device.
+        self.steps = torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+    @property
+    def count(self) -> int:
+        """Updates applied (a read-back from the device)."""
+        return int(self.steps)
 
     def zero_grad(self) -> None:
         self.base.zero_grad(set_to_none=True)
 
     def global_norm(self) -> torch.Tensor:
-        return torch.sqrt(sum(torch.sum(torch.square(p.grad)) for p in self.params))
+        norms = torch._foreach_norm([p.grad for p in self.params])
+        return torch.linalg.vector_norm(torch.stack(norms))
 
     def step(self) -> torch.Tensor:
         gnorm = self.global_norm()
@@ -63,12 +78,43 @@ class Optimizer:
             for p in self.params:
                 p.grad.copy_(torch.where(keep, p.grad, p.grad / gnorm * self.spec.clip_norm))
         if self.spec.schedule is not None:
-            lr = self.spec.schedule(self.count)
+            lr = self.spec.schedule(self.steps)
             for group in self.base.param_groups:
                 group["lr"] = lr
         self.base.step()
-        self.count += 1
+        self.steps.add_(1)
         return gnorm
+
+
+class NesterovSGD(torch.optim.Optimizer):
+    """optax's ``sgd(lr, momentum, nesterov)``: the trace ``b = m*b + g``
+    (zero before the first update), the update ``g + m*b`` (``b`` without
+    Nesterov), scaled by ``-lr`` and added to the parameters. ``lr`` may be
+    a device tensor: every op is a ``torch._foreach_*`` op on the
+    parameters' device, none reads a value back."""
+
+    def __init__(self, params, lr, momentum: float, nesterov: bool):
+        super().__init__(params, {"lr": lr, "momentum": momentum, "nesterov": nesterov})
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["trace"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p in params]
+            traces = [self.state[p]["trace"] for p in params]
+            m, neg_lr = group["momentum"], -group["lr"]
+            torch._foreach_mul_(traces, m)
+            torch._foreach_add_(traces, grads)
+            if group["nesterov"]:
+                updates = torch._foreach_mul(traces, m)
+                torch._foreach_add_(updates, grads)
+                torch._foreach_mul_(updates, neg_lr)
+            else:
+                updates = torch._foreach_mul(traces, neg_lr)
+            torch._foreach_add_(params, updates)
 
 
 def keras_sgd(
@@ -77,15 +123,16 @@ def keras_sgd(
     decay: float = 1e-6,
     nesterov: bool = True,
 ) -> OptimizerSpec:
-    """SGD with Keras-style inverse-time lr decay (reference defaults).
-    torch's Nesterov SGD (buffer ``b = m*b + g``, update ``g + m*b``) is
-    optax's ``trace(nesterov=True)`` update for update."""
+    """SGD with Keras-style inverse-time lr decay (reference defaults), as
+    optax builds it: ``NesterovSGD`` with the schedule's lr before each
+    update, computed in f32 as optax computes it."""
 
-    def schedule(step: int) -> float:
-        return learning_rate / (1.0 + decay * step)
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        denom = 1.0 + decay * step.to(torch.float32)
+        return torch.full_like(denom, learning_rate) / denom
 
     return OptimizerSpec(
-        make=lambda params: torch.optim.SGD(
+        make=lambda params: NesterovSGD(
             params, lr=learning_rate, momentum=momentum, nesterov=nesterov
         ),
         schedule=schedule,
@@ -94,9 +141,12 @@ def keras_sgd(
 
 def _adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8) -> OptimizerSpec:
+    # capturable on the card: the step count stays on the device, so a
+    # CUDA graph can replay the update.
     return OptimizerSpec(
         make=lambda params: torch.optim.Adam(
-            params, lr=learning_rate, betas=(b1, b2), eps=eps
+            params, lr=learning_rate, betas=(b1, b2), eps=eps,
+            capturable=params[0].is_cuda,
         )
     )
 
@@ -108,7 +158,7 @@ def _adamw(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return OptimizerSpec(
         make=lambda params: torch.optim.AdamW(
             params, lr=learning_rate, betas=(b1, b2), eps=eps,
-            weight_decay=weight_decay,
+            weight_decay=weight_decay, capturable=params[0].is_cuda,
         )
     )
 
