@@ -15,6 +15,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the shapes the training and serving paths give it (``lstm_fwd``,
    ``lstm_bwd``, ``mae_clip``, ``mae_clip_grad``, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, ``ring_round_fwd``, ``ring_round_bwd``; the
+   LSTM kernels and the loss's also at a data-parallel rank's batch of 5,
+   and the stacked LSTM's two layers there through both LSTM kernels; the
    LSTM kernels also at hidden sizes 128, 256, 50, 300, 512 and 2048, and
    the backward at 12000, past the hidden size whose chain tiles fit in
    shared memory; the ring rounds at five shapes, each with a diagonal, a
@@ -64,6 +66,17 @@ Phases, in order; any failure exits non-zero before the result line:
    equal, only rank 0 writes the artifact, whose sidecar says ``full``); the
    SP LSTM ring (``make_sp_forward``) against ``lstm_scan``; and where a
    ring train step's time goes.
+   dp      — the stacked LSTM data parallel on four ranks (``spawn``; NCCL
+   with a card each, else gloo on ``cuda:0``, the gradient all-reduce
+   staged through host memory): one DP step at the global batch of 20
+   against one process stepping the whole batch (parameters within 1e-5
+   normwise, ranks bitwise equal); ``train(TrainJobConfig(model=
+   "stacked_lstm", n_devices=4, max_epochs=2))`` on every rank (rank 0
+   traced: its launches equal the data sizes' and its device trace;
+   per-batch with the DP reason; every rank's history and final parameters
+   equal; only rank 0 writes; test MAE within 1% of the single-card
+   stacked LSTM's), rank 0's artifact served by ``PredictService``, and a
+   steady DP step's host-clock time beside its all-reduce alone.
 6. serve   — the trained artifacts (LSTM-64, stacked LSTM, attention, the
    ring-trained attention at 256 steps) and
    an LSTM-64, a stacked-LSTM and an attention artifact with random weights
@@ -131,6 +144,8 @@ SCHEMA = [("pressure", "float"), ("choke", "float"), ("glr", "float"),
           ("completion", "string"), ("well", "string"), ("flow", "float")]
 BATCH = 4096  # Predictor's forward chunk
 TRAIN_BATCH = 20  # TrainJobConfig.batch_size
+DP_RANKS = 4  # the dp phase's ranks
+DP_BATCH = TRAIN_BATCH // DP_RANKS  # each data-parallel rank's rows of a batch
 # H100 SXM data sheet: HBM rate and the f32 rate
 # of the CUDA cores, which the f32 kernels use.
 HBM_BYTES_PER_S = 3.35e12
@@ -157,7 +172,8 @@ WIDE_HIDDEN = (128, 256, 50, 300, 512, 2048)
 BEYOND_SHARED_HIDDEN = 12000
 # mae_clip's shapes: the train loss at batch 20, the eval (one row an
 # example), and a row of the serving chunk's size (several blocks a row).
-MAE_SHAPES = ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T))
+MAE_SHAPES = ((1, TRAIN_BATCH * T), (TRAIN_BATCH, T), (1, 4096 * T), (1, DP_BATCH * T),
+              (DP_BATCH, T))
 # Wide-row mae_clip calls on two streams at once, (shape, calls a stream):
 # rows of 24 and of 1024 blocks.
 MAE_STREAM_SHAPES = (((3, 4096 * T), 40), ((3, 4096 * 1024), 8))
@@ -429,6 +445,7 @@ def phase_kernels(torch) -> dict:
         "lstm_bwd": kernel_lstm_bwd(torch),
     }
     records.update(kernel_mae_clip(torch))
+    kernel_dp_layers(torch)
     kernel_lstm_repeat(torch)
     kernel_lstm_wide(torch)
     records.update(kernel_flash(torch))
@@ -439,8 +456,9 @@ def phase_kernels(torch) -> dict:
 
 
 def kernel_lstm_fwd(torch) -> dict:
-    """lstm_fwd against lstm_scan_reference at T=24, H=64, B in {1, 20, 37,
-    4096}; returns the record of the serving shape, B=4096."""
+    """lstm_fwd against lstm_scan_reference at T=24, H=64, B in {1, 5 (a
+    data-parallel rank's rows), 20, 37, 4096}; returns the record of the
+    serving shape, B=4096."""
     from tpuflow_torch.kernels.lstm import lstm_scan, lstm_scan_reference
 
     dev = torch.device("cuda")
@@ -449,7 +467,7 @@ def kernel_lstm_fwd(torch) -> dict:
         f"tolerance atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (other summation "
         "order and exp/tanh code over 24 dependent steps)")
     worst, record = 0.0, None
-    for B in (1, TRAIN_BATCH, 37, 4096):
+    for B in (1, DP_BATCH, TRAIN_BATCH, 37, 4096):
         xw = torch.randn((T, B, 4 * H), generator=gen, device=dev)
         wh = torch.randn((H, 4 * H), generator=gen, device=dev) / H ** 0.5
         b = torch.randn(4 * H, generator=gen, device=dev) * 0.1
@@ -480,6 +498,43 @@ def kernel_lstm_fwd(torch) -> dict:
                   "bound_by": bound_by, "library_ms": library_ms}
     record["max_abs_err"] = worst
     return record
+
+
+def kernel_dp_layers(torch) -> None:
+    """The stacked LSTM's two layers at a data-parallel rank's batch (B =
+    DP_BATCH, T = 24, H = 64, input widths 5 and 64): the layer's output
+    through lstm_fwd, and the gradients of its input and parameters through
+    lstm_bwd, against the layer's plain path on the same inputs. Raises on
+    a disagreement."""
+    from tpuflow_torch.models.lstm import LSTMLayer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for F in (len(FEATURES), H):
+        layer = LSTMLayer(F, H)
+        layer.reset_parameters(torch.Generator().manual_seed(F))
+        layer.to(dev)
+        x = torch.randn((DP_BATCH, T, F), generator=gen, device=dev)
+        g = torch.randn((DP_BATCH, T, H), generator=gen, device=dev)
+        outs = []
+        for plain in (False, True):
+            xr = x.clone().requires_grad_()
+            layer.zero_grad(set_to_none=True)
+            y = layer(xr, plain=plain)
+            (y * g).sum().backward()
+            outs.append((y.detach(), {"x": xr.grad, **{n: p.grad for n, p in
+                                                      layer.named_parameters()}}))
+        (y, grads), (y_plain, grads_plain) = outs
+        err = (y - y_plain).abs().max().item()
+        errs = {n: normwise_err(grads[n], grads_plain[n]) for n in grads}
+        log(f"[kernel] LSTM layer at B={DP_BATCH} (a data-parallel rank's rows), T={T}, "
+            f"H={H}, input width {F}: output max abs err {err:.3e} (tolerance "
+            f"{KERNEL_ATOL}), gradients normwise " + ", ".join(
+                f"{n}={e:.2e}" for n, e in errs.items()) + f" (tolerance {GRAD_TOL})")
+        bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
+        if not torch.allclose(y, y_plain, atol=KERNEL_ATOL, rtol=KERNEL_RTOL) or bad:
+            raise AssertionError(f"LSTM layer at B={DP_BATCH}, input width {F}: kernels "
+                                 f"disagree with the plain path (output {err:.3e}, {bad})")
 
 
 def kernel_lstm_repeat(torch) -> None:
@@ -622,9 +677,9 @@ def check_lstm_bwd(torch, xw, wh, b, hs, cs, dhs, where: str, runs: int = 25) ->
 
 def kernel_lstm_bwd(torch) -> dict:
     """lstm_bwd's three kernels against their plain pieces, and the whole
-    against lstm_scan_backward_reference, at T=24, H=64, B in {20 (the
-    training batch), 37 (ragged), 4096}; returns the record of the training
-    shape, B=20."""
+    against lstm_scan_backward_reference, at T=24, H=64, B in {5 (a
+    data-parallel rank's rows), 20 (the training batch), 37 (ragged), 4096};
+    returns the record of the training shape, B=20."""
     from tpuflow_torch.kernels.lstm import lstm_scan_reference
 
     dev = torch.device("cuda")
@@ -634,7 +689,7 @@ def kernel_lstm_bwd(torch) -> dict:
         "4H-term sums in another order; dW_h, db: sums over B*T products); its "
         f"kernels vs their plain pieces {BWD_PIECE_TOL}")
     record, worst = None, 0.0
-    for B in (TRAIN_BATCH, 37, 4096):
+    for B in (DP_BATCH, TRAIN_BATCH, 37, 4096):
         xw = torch.randn((T, B, 4 * H), generator=gen, device=dev)
         wh = torch.randn((H, 4 * H), generator=gen, device=dev) / H ** 0.5
         b = torch.randn(4 * H, generator=gen, device=dev) * 0.1
@@ -1134,11 +1189,14 @@ def kernel_mae_clip_streams(torch) -> None:
             "once match their plain versions and equal each call made alone")
 
 
-def expected_train_launches(config) -> tuple[dict, dict]:
-    """Each kernel's launches in one ``train(config)`` on synthetic wells,
-    from the data sizes: windows per well, the 64/16/20 split, whole train
-    batches, padded val batches each epoch, then the test split once at
-    the final eval's batch (256 when it is over 4 train batches). Each of
+def expected_train_launches(config, ranks: int = 1) -> tuple[dict, dict]:
+    """Each kernel's launches in one ``train(config)`` on synthetic wells
+    (on each rank of a data-parallel run over ``ranks``: one launch a
+    global batch, on the rank's rows), from the data sizes: windows per
+    well, the 64/16/20 split, whole train batches, padded val batches each
+    epoch, then the test split once at the final eval's batch (256 when it
+    is over 4 train batches on one card, the train batch under data
+    parallel, as in JAX). Each of
     the model's layers runs its family's forward kernel once per batch and
     its backward kernels once per train batch; the loss's kernel runs once
     per batch and its gradient once per train batch; the family's other
@@ -1147,7 +1205,7 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     n_train, n_val = int(round(n * 0.64)), int(round(n * 0.16))
     n_test = n - n_train - n_val
     bs = config.batch_size
-    eval_bs = max(bs, 256) if n_test > 4 * bs else bs
+    eval_bs = max(bs, 256) if ranks == 1 and n_test > 4 * bs else bs
     train_b, val_b, test_b = n_train // bs, -(-n_val // bs), -(-n_test // eval_bs)
     epochs, layers = config.max_epochs, LAYERS[config.model]
     backward = ("flash_dq", "flash_dkv") if config.model == "attention" else ("lstm_bwd",)
@@ -1166,14 +1224,14 @@ def expected_train_launches(config) -> tuple[dict, dict]:
     return want, sizes
 
 
-def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, float]:
+def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, dict]:
     """Train LSTM-64 (3 epochs), the stacked LSTM (2 epochs) and the
     attention regressor (3 epochs) through ``train(TrainJobConfig(...))`` at
     its defaults into ``root``, then the attention regressor at a 256-step
     window (1 epoch, into a directory of its own); returns the kernels'
     launches summed over the counted runs (each run's wrapper counts and the
-    executions in its device trace, which must agree), and the 256-step
-    run's test MAE."""
+    executions in its device trace, which must agree), and each run's test
+    MAE by label."""
     from tpuflow_torch.api.config import TrainJobConfig
     from tpuflow_torch.api.train_api import train
     from tpuflow_torch.data.pipeline import prepare_windowed
@@ -1182,7 +1240,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, float]:
 
     totals = dict.fromkeys(KERNELS, 0)
     traced_totals = dict.fromkeys(KERNELS, 0)
-    models = []
+    models, maes = [], {}
     runs = (("lstm", 3, T), ("stacked_lstm", 2, T), ("attention", 3, T), ("attention", 1, 256))
     for model_name, epochs, window in runs:
         label = model_name if window == T else f"{model_name}@{window}"
@@ -1231,8 +1289,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, float]:
             traced_totals[k] += ran[k]
         if window == T:
             models.append((model_name, report.result.model))
-        else:
-            mae_256 = report.test_mae
+        maes[label] = report.test_mae
 
     # After the counted runs: gradients, steady steps, profile.
     splits = prepare_windowed(generate_wells(n_wells=8, steps=512, seed=0),
@@ -1242,7 +1299,7 @@ def phase_train(torch, root: str, smi: str) -> tuple[dict, dict, float]:
     for model_name, model in models:
         check_gradients(torch, model_name, model, x[:TRAIN_BATCH], y[:TRAIN_BATCH])
         steady_steps(torch, model_name, model, x, y, smi)
-    return totals, traced_totals, mae_256
+    return totals, traced_totals, maes
 
 
 def check_gradients(torch, model_name, model, x, y) -> None:
@@ -2254,6 +2311,293 @@ def phase_ring(torch, root: str, smi: str, single_mae: float) -> dict:
     return t0["launches"], t0["traced"]
 
 
+# The dp phase: one data-parallel step against one process on the whole
+# batch (parameters normwise; the update, parameters less their start, at
+# the gradients' tolerance), and the DP run's test MAE against the single-
+# card stacked LSTM's (the same arithmetic up to reduction order).
+DP_STEP_TOL = 1e-5
+DP_UPDATE_TOL = GRAD_TOL
+DP_MAE_REL = 1e-2
+DP_TIMEOUT_S = 480.0
+
+
+def _dp_batch() -> tuple[np.ndarray, np.ndarray]:
+    """One global batch of 20 windows of 24 steps, and targets, from a seed."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((TRAIN_BATCH, T, len(FEATURES))).astype(np.float32)
+    return x, rng.standard_normal((TRAIN_BATCH, T)).astype(np.float32)
+
+
+def _dp_one_step(torch, device, mesh=None) -> dict:
+    """One keras_sgd step of the stacked LSTM (weights from a seed) on
+    ``_dp_batch``: data parallel over ``mesh`` (this rank's rows), or one
+    process on the whole batch. Returns the loss and the parameters before
+    and after, as numpy."""
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.models import build_model
+    from tpuflow_torch.parallel import make_dp_train_step, make_process_fed_steps
+    from tpuflow_torch.train.optim import keras_sgd
+    from tpuflow_torch.train.steps import make_train_step
+
+    model = build_model("stacked_lstm", len(FEATURES), window=T)
+    model.reset_parameters(torch.Generator().manual_seed(21))
+    model.to(device)
+    opt = keras_sgd().bind(model.parameters())
+    if mesh is None:
+        step = make_train_step(model, opt, mae_clip)
+    else:
+        step = make_process_fed_steps(mesh, make_dp_train_step(model, opt, mae_clip, mesh),
+                                      None)[0]
+    before = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    x, y = (torch.from_numpy(a).to(device) for a in _dp_batch())
+    loss = step(x, y)["loss"].item()
+    return {"loss": loss, "before": before,
+            "after": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}}
+
+
+def _dp_train_config(root: str):
+    from tpuflow_torch.api.config import TrainJobConfig
+
+    return TrainJobConfig(model="stacked_lstm", n_devices=DP_RANKS, max_epochs=2,
+                          verbose=False, storage_path=os.path.join(root, "dp"))
+
+
+def dp_ranks(mesh, root: str) -> dict:
+    """One rank's part of the dp phase: one DP step, ``train(config)`` of
+    the stacked LSTM data parallel (rank 0 under the profiler), and where a
+    steady DP step's time goes. Returns numpy results for the parent."""
+    import torch
+
+    from tpuflow_torch.api import predict_api
+    from tpuflow_torch.api.train_api import train
+    from tpuflow_torch.kernels import KERNELS
+    from tpuflow_torch.storage.checkpoint import StoreCheckpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "step": _dp_one_step(torch, mesh.device, mesh)}
+
+    writes = {"checkpoints": 0, "sidecars": 0}
+    save, meta = StoreCheckpointer.maybe_save, predict_api.save_artifact_meta
+
+    def counted_save(self, *a, **kw):
+        writes["checkpoints"] += 1
+        return save(self, *a, **kw)
+
+    def counted_meta(*a, **kw):
+        writes["sidecars"] += 1
+        return meta(*a, **kw)
+
+    StoreCheckpointer.maybe_save, predict_api.save_artifact_meta = counted_save, counted_meta
+    config = _dp_train_config(root)
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    if mesh.rank == 0:  # one rank traced: the profiler costs each traced rank
+        report, ran = traced(torch, lambda: train(config))
+    else:
+        report, ran = train(config), None
+    out["train"] = {
+        "seconds": time.perf_counter() - t0,
+        "launches": {n: k.launches for n, k in KERNELS.items()}, "traced": ran,
+        "writes": writes, "epochs_ran": report.result.epochs_ran,
+        "history": [{k: h[k] for k in ("epoch", "loss", "val_loss", "val_mae")}
+                    for h in report.result.history],
+        "times": [h["time"] for h in report.result.history],
+        "test_loss": report.test_loss, "test_mae": report.test_mae,
+        "gilbert_mae": report.gilbert_mae, "samples_per_sec": report.samples_per_sec,
+        "program": (report.epoch_program, report.epoch_program_reason),
+        "params": {n: p.detach().cpu().numpy()
+                   for n, p in report.result.model.named_parameters()},
+    }
+    out["split"] = _dp_step_split(torch, mesh, report.result.model)
+    return out
+
+
+def _dp_step_split(torch, mesh, model) -> dict:
+    """A steady DP step at the global batch of 20 (keras_sgd, mae_clip):
+    host clock over 20 steps ending in a synchronise, and the step's one
+    all-reduce timed alone at its size (every parameter and the loss in
+    one flat buffer), median of 20, and on gloo its parts: the copy to the
+    host, gloo's all-reduce of the host buffer, the copy back. Every rank
+    runs it together."""
+    import torch.distributed as dist
+
+    from tpuflow_torch.core.losses import mae_clip
+    from tpuflow_torch.parallel import make_dp_train_step, make_process_fed_steps, pmean
+    from tpuflow_torch.train.optim import keras_sgd
+
+    step = make_process_fed_steps(
+        mesh, make_dp_train_step(model, keras_sgd().bind(model.parameters()), mae_clip,
+                                 mesh), None)[0]
+    x, y = (torch.from_numpy(a).to(mesh.device) for a in _dp_batch())
+    for _ in range(3):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(x, y)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    flat = torch.randn(sum(p.numel() for p in model.parameters()) + 1, device=mesh.device)
+    host = flat.cpu()
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"step_ms": step_ms, "all_reduce_ms": timed(lambda: pmean(flat, mesh)),
+           "all_reduce_floats": flat.numel()}
+    if mesh.backend == "gloo":  # the all-reduce's parts: staging and gloo itself
+        out["to_host_ms"] = timed(lambda: flat.cpu())
+        out["gloo_ms"] = timed(lambda: dist.all_reduce(host.clone(), group=mesh.group))
+        out["to_card_ms"] = timed(lambda: host.to(mesh.device))
+    return out
+
+
+def phase_dp(torch, root: str, smi: str, single_mae: float) -> dict:
+    """The stacked LSTM data parallel on DP_RANKS ranks against one process
+    on the card; returns rank 0's kernel launches in the DP training."""
+    from tpuflow_torch.kernels import KERNELS
+    from tpuflow_torch.parallel import spawn
+    from tpuflow_torch.parallel.distributed import default_backend
+    from tpuflow_torch.serve import PredictService
+
+    backend = default_backend(DP_RANKS)
+    where = ("each rank on a card of its own" if backend == "nccl" else
+             "all ranks on cuda:0, the gradient all-reduce staged through host memory")
+    log(f"[dp] {DP_RANKS} ranks over {backend}: {where} ({torch.cuda.device_count()} "
+        f"card(s); card: {smi})")
+    t0 = time.perf_counter()
+    ranks = spawn(dp_ranks, DP_RANKS, root, timeout_s=DP_TIMEOUT_S)
+    log(f"[dp] ranks done in {time.perf_counter() - t0:.1f} s (spawn included): "
+        + ", ".join(f"rank {r['rank']} {r['backend']} {r['device']}" for r in ranks))
+
+    # 1. One DP step against one process stepping the whole batch.
+    first = ranks[0]["step"]
+    for r in ranks[1:]:
+        if any(not np.array_equal(r["step"]["after"][n], a) for n, a in first["after"].items()):
+            raise AssertionError(f"dp rank {r['rank']}'s parameters after one step differ "
+                                 "from rank 0's")
+    one = _dp_one_step(torch, torch.device("cuda"))
+
+    def err(got: np.ndarray, want: np.ndarray) -> float:
+        return normwise_err(torch.from_numpy(got), torch.from_numpy(want))
+
+    errs = {n: err(first["after"][n], w) for n, w in one["after"].items()}
+    update_errs = {n: err(first["after"][n] - first["before"][n], w - one["before"][n])
+                   for n, w in one["after"].items()}
+    loss_err = abs(first["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"[dp] one step at the global batch {TRAIN_BATCH} ({DP_RANKS} x {DP_BATCH} rows) vs "
+        f"one process on the card: loss {first['loss']:.7f} vs {one['loss']:.7f} (rel err "
+        f"{loss_err:.2e}); parameters normwise " + ", ".join(
+            f"{n}={e:.2e}" for n, e in errs.items()) + f" (tolerance {DP_STEP_TOL}); the "
+        "update normwise " + ", ".join(f"{n}={e:.2e}" for n, e in update_errs.items())
+        + f" (tolerance {DP_UPDATE_TOL}); all {DP_RANKS} ranks bitwise equal")
+    bad = {n: e for n, e in errs.items() if not e <= DP_STEP_TOL}
+    bad.update({f"update {n}": e for n, e in update_errs.items() if not e <= DP_UPDATE_TOL})
+    if bad or not loss_err <= DP_STEP_TOL:
+        raise AssertionError(f"one DP step disagrees with one process: {bad}, loss "
+                             f"{loss_err:.2e}")
+
+    # 2. train(config) data parallel on every rank.
+    config = _dp_train_config(root)
+    want, sizes = expected_train_launches(config, ranks=DP_RANKS)
+    t0 = ranks[0]["train"]
+    for h, seconds in zip(t0["history"], t0["times"]):
+        log(f"[dp] train epoch {h['epoch']}: loss={h['loss']:.6f} "
+            f"val_loss={h['val_loss']:.6f} time_s={seconds:.3f} (rank 0, traced)")
+    mae_rel = abs(t0["test_mae"] - single_mae) / single_mae
+    log(f"[dp] train stacked_lstm, {config.max_epochs} epochs, {t0['seconds']:.2f} s on rank 0 "
+        f"(traced); data {sizes}; test_loss={t0['test_loss']:.6f} "
+        f"test_mae={t0['test_mae']:.2f} gilbert_mae={t0['gilbert_mae']:.2f} stb/day; "
+        f"single-card run {single_mae:.2f}, rel diff {mae_rel:.2e} (tolerance {DP_MAE_REL}); "
+        f"fit samples/s/chip={t0['samples_per_sec']:.1f} (global over {DP_RANKS} ranks, host "
+        f"clock over the fit with eval, rank 0 traced; card: {smi})")
+    log(f"[dp] rank 0 launches {t0['launches']}, expected {want} (one a global batch at "
+        f"{DP_BATCH} rows), in the device trace {t0['traced']}; writes "
+        + ", ".join(f"rank {r['rank']} {r['train']['writes']}" for r in ranks))
+    log(f"[dp] epoch program (AUTO) {t0['program'][0]}: {t0['program'][1]}")
+    print(json.dumps({"dp": {"ranks": DP_RANKS, "backend": ranks[0]["backend"],
+                             "launches": t0["launches"], "traced_launches": t0["traced"]}}))
+    for r in ranks:
+        tr = r["train"]
+        if tr["program"][0] != "per_batch" or not tr["program"][1].startswith(
+                "data parallelism"):
+            raise AssertionError(f"dp rank {r['rank']} ran {tr['program']}")
+        if tr["epochs_ran"] != t0["epochs_ran"] or tr["history"] != t0["history"]:
+            raise AssertionError(f"dp rank {r['rank']}: epochs or history differ from "
+                                 f"rank 0's: {tr['history']} vs {t0['history']}")
+        if not (np.isfinite([[h["loss"], h["val_loss"]] for h in tr["history"]]).all()
+                and np.isfinite(tr["test_loss"])):
+            raise AssertionError(f"dp rank {r['rank']}: non-finite losses")
+        if any(not np.array_equal(tr["params"][p], t0["params"][p]) for p in t0["params"]):
+            raise AssertionError(f"dp rank {r['rank']}: final parameters differ from "
+                                 "rank 0's")
+        wrote = tr["writes"]["checkpoints"] + tr["writes"]["sidecars"]
+        if (r["rank"] == 0) != (wrote > 0):
+            raise AssertionError(f"dp rank {r['rank']} wrote {tr['writes']}: only rank 0 "
+                                 "may write the artifact")
+    if t0["epochs_ran"] != config.max_epochs:
+        raise AssertionError(f"dp ran {t0['epochs_ran']} epochs, not {config.max_epochs}")
+    missed = [k for k in ("lstm_fwd", "lstm_bwd", "mae_clip", "mae_clip_grad")
+              if t0["launches"][k] == 0]
+    if missed or t0["launches"] != want:
+        raise AssertionError(f"dp rank 0: kernel launches {t0['launches']} != {want} "
+                             f"(none of {missed})")
+    if t0["traced"] != want:
+        raise AssertionError(f"dp rank 0: kernels run in the device trace {t0['traced']} "
+                             f"!= {want}")
+    if not mae_rel <= DP_MAE_REL:
+        raise AssertionError(f"dp test MAE {t0['test_mae']:.2f} is not within {DP_MAE_REL} "
+                             f"of the single-card {single_mae:.2f}")
+
+    # 3. Rank 0's artifact served on the card.
+    service = PredictService()
+    cols = _columns(1, 512, 2, False)
+    store = os.path.join(root, "dp")
+    for k in KERNELS.values():
+        k.launches = 0
+    body = service.predict({"storagePath": store, "model": "stacked_lstm",
+                            "columns": {c: v.tolist() for c, v in cols.items()}})
+    y = np.asarray(body["predictions"], np.float64)
+    windows = len(cols["pressure"]) - T + 1
+    pred = service.get_predictor(store, "stacked_lstm")
+    x, _ = pred.prepare_columns(cols)
+    serve_err = float(np.abs(pred.forward_prepared(x, plain=True) - y).max())
+    atol = PRED_ATOL_NORM * pred._meta["preprocessor"]["target_std"]
+    launched = KERNELS["lstm_fwd"].launches
+    log(f"[dp] rank 0's artifact served by PredictService on {service.device}: "
+        f"{body['count']} windows, lstm_fwd launches {launched}, vs the plain path max abs "
+        f"err {serve_err:.3e} (tolerance {atol:.3e})")
+    if body["count"] != windows or y.shape != (windows, T) or not np.isfinite(y).all():
+        raise AssertionError(f"dp artifact: count {body['count']}, shape {y.shape}")
+    if launched != LAYERS["stacked_lstm"] * -(-windows // BATCH) or serve_err > atol:
+        raise AssertionError(f"dp artifact: {launched} lstm_fwd launches, err {serve_err:.3e}")
+
+    # 4. Where a steady DP step's time goes (rank 0).
+    sp = ranks[0]["split"]
+    log(f"[dp] steady DP step, global batch {TRAIN_BATCH} ({DP_RANKS} x {DP_BATCH}): "
+        f"{sp['step_ms']:.3f} ms (host clock over 20 steps, rank 0); its all-reduce alone "
+        f"({sp['all_reduce_floats']} floats, median of 20) {sp['all_reduce_ms']:.3f} ms, "
+        f"{sp['all_reduce_ms'] / sp['step_ms']:.3f} of the step"
+        + (f" (to the host {sp['to_host_ms']:.3f} ms, gloo's all-reduce "
+           f"{sp['gloo_ms']:.3f}, back to the card {sp['to_card_ms']:.3f})"
+           if "gloo_ms" in sp else "") + "; "
+        f"{TRAIN_BATCH / sp['step_ms'] * 1e3:.1f} samples/s, "
+        f"{TRAIN_BATCH / sp['step_ms'] * 1e3 / DP_RANKS:.1f} samples/s/chip as JAX counts "
+        f"(over the {DP_RANKS} ranks; {ranks[0]['backend']}; card: {smi})")
+    return t0["launches"]
+
+
 def _columns(n_wells: int, steps: int, seed: int, well_ids: bool) -> dict:
     from tpuflow_torch.data.synthetic import generate_wells, wells_to_table
 
@@ -2460,9 +2804,10 @@ def main() -> int:
     phase_build()
     records = phase_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="tpuflow_torch_smoke_") as root:
-        launches, ran, mae_256 = phase_train(torch, root, smi)
+        launches, ran, maes = phase_train(torch, root, smi)
         phase_graph(torch, smi)
-        ring_launches, ring_ran = phase_ring(torch, root, smi, mae_256)
+        ring_launches, ring_ran = phase_ring(torch, root, smi, maes[f"attention@{RING_TRAIN_WINDOW}"])
+        phase_dp(torch, root, smi, maes["stacked_lstm"])
         serve_launches = phase_serve(torch, root, smi)
     missed = [k for k in ("lstm_fwd", "flash_fwd") if serve_launches[k] == 0]
     if missed:

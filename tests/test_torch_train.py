@@ -181,7 +181,7 @@ def test_config_fields_and_defaults_match_jax():
 
 @pytest.mark.parametrize(
     "field,value",
-    [("stream", True), ("tp", 2), ("pp", 2), ("ep", 2), ("n_devices", 2),
+    [("stream", True), ("tp", 2), ("pp", 2), ("ep", 2),
      ("elastic", {}), ("online", {}), ("autotune", {}), ("warm_start", "x"),
      ("resume", True), ("save_every", 1), ("faults", ["train.epoch_end,at=1"]),
      ("fault_epoch", 1), ("progress_path", "p.json"), ("trace_dir", "t"),
@@ -194,14 +194,24 @@ def test_fields_not_ported_yet_raise(field, value):
         train(config, device="cpu")
 
 
+def test_n_devices_without_a_group_raises():
+    """Data parallel runs one process per card: ``n_devices=2`` in a process
+    that joined no ``torch.distributed`` group raises, naming how to start
+    the ranks (tests/test_torch_dp.py trains it inside a group)."""
+    config = dataclasses.replace(TrainJobConfig(), n_devices=2)
+    with pytest.raises(ValueError, match=r"n_devices=2 needs 2 processes.*init_distributed"):
+        train(config, device="cpu")
+
+
 def test_n_devices_none_refuses_several_cards(monkeypatch):
     """JAX reads ``n_devices=None`` as every visible device (data parallel
-    when there are several); the port raises on a host with more than one
-    card rather than train on one of them, and the CPU path is unchanged."""
+    when there are several); the port runs one process per card, so a single
+    process on a host with more than one card raises rather than train on
+    one of them, and the CPU path is unchanged."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     config = TrainJobConfig(model="lstm", max_epochs=1, **SMALL)
     assert config.n_devices is None
-    with pytest.raises(NotImplementedError, match=r"n_devices=None.*Queue 1 item 8"):
+    with pytest.raises(ValueError, match=r"n_devices=None.*one process per card"):
         train(config)
     report = train(config, device="cpu")
     assert np.isfinite(report.test_loss)

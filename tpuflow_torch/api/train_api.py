@@ -14,11 +14,21 @@ trains the same replicated model on the same batches, so their losses,
 early stopping and final parameters agree; only the group's rank 0 writes
 the checkpoints and the sidecar, and the ranks meet at a barrier after it.
 
+Data parallel (``n_devices`` of None or N, called on every rank of an
+initialised group of N ranks, one process per card: ``torchrun
+--nproc-per-node N`` or ``tpuflow_torch.parallel.spawn``) trains rank 0's
+replicated model on each rank's slice of every global batch, with one
+gradient all-reduce a step (``tpuflow_torch/parallel/dp.py``); the
+arithmetic is one process's on the whole batch. The same rank-0 writes and
+barrier apply, and ``samples_per_sec`` is the global rate over N, as in
+JAX.
+
 The epoch program is resolved as in the JAX package: ``jit_epoch=None``
 ("auto") through ``tpuflow_torch.train.autotune.choose_epoch_program``
 (the scanned epoch, a CUDA graph of the train step on a GPU, at every
 batch on a card whose sweep measured it faster, as the H100's did, else
-below the heuristic crossover batch of 256; per-batch steps on a ring), an explicit
+below the heuristic crossover batch of 256; per-batch steps on a ring and
+under data parallel), an explicit
 True/False as given; the choice is ``TrainReport.epoch_program``.
 
 The model is initialised by the port (flax's initialisers in distribution,
@@ -54,7 +64,15 @@ from tpuflow_torch.data.synthetic import (
 from tpuflow_torch.models import build_model
 from tpuflow_torch.models.registry import MODELS
 from tpuflow_torch.obs.health import HEALTH_OFF, HEALTH_POLICIES
-from tpuflow_torch.parallel.mesh import DATA_AXIS
+from tpuflow_torch.parallel.dp import (
+    make_dp_eval_step,
+    make_dp_train_step,
+    make_process_fed_steps,
+    rank_seed,
+    replicate,
+)
+from tpuflow_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+from tpuflow_torch.parallel.placement import device_count
 from tpuflow_torch.train.autotune import ProgramChoice, choose_epoch_program
 from tpuflow_torch.train.loop import FitConfig, FitResult, evaluate, fit
 from tpuflow_torch.train.optim import build_optimizer, wrap_optimizer
@@ -65,7 +83,6 @@ _NOT_PORTED = (
     ("tp", lambda c: c.tp != 1, "item 11 (TP/PP/EP trainers)"),
     ("pp", lambda c: c.pp != 1, "item 11 (TP/PP/EP trainers)"),
     ("ep", lambda c: c.ep != 1, "item 11 (TP/PP/EP trainers)"),
-    ("n_devices", lambda c: c.n_devices not in (None, 1), "item 8 (data parallel)"),
     ("elastic", lambda c: c.elastic is not None, "item 13 (elastic gang)"),
     ("online", lambda c: c.online is not None, "item 13 (online loop)"),
     ("autotune", lambda c: c.autotune is not None, "item 12 (autotuner)"),
@@ -97,20 +114,51 @@ def _refuse_not_ported(config: TrainJobConfig) -> None:
         )
 
 
-def _refuse_every_card(config: TrainJobConfig, mesh, device) -> None:
-    """``n_devices=None`` means every visible device, as in the JAX package
-    (data parallel over them when there are several). One card trains as
-    one device; more than one would need data parallel, which is not
-    ported, so raise rather than train on one of them. A ring's mesh names
-    its own devices."""
+def _dp_mesh(config: TrainJobConfig, ring, device) -> Mesh | None:
+    """The data-parallel mesh of this job, or None when it trains on one
+    rank. The port runs one process per card: inside an initialised
+    ``torch.distributed`` group of N > 1 ranks, ``n_devices`` of None or N
+    trains data parallel over it (JAX's ``n_devices > 1``,
+    ``tpuflow/api/train_api.py:987-1027``). ``n_devices=None`` means every
+    visible card, as in JAX, so a single process on a host with several
+    raises rather than train on one of them. A ring's ranks split each
+    window and train no data parallel."""
+    n = config.n_devices
+    if n is not None and n < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n}")
+    if ring is not None:
+        if n not in (None, 1):
+            raise ValueError(
+                f"n_devices={n} with backend='ring': the ring splits each window "
+                "over its mesh's ranks and trains no data parallel; leave "
+                "n_devices None")
+        return None
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    launch = ("start them with torchrun --nproc-per-node {n} (the CLI joins them "
+              "through tpuflow_torch.parallel.init_distributed) or "
+              "tpuflow_torch.parallel.spawn, and call train on every rank")
+    if ranks > 1:
+        if n not in (None, ranks):
+            raise ValueError(
+                f"n_devices={n} differs from the process group's {ranks} ranks: "
+                f"data parallel runs one process per rank; pass n_devices={ranks}")
+        if config.batch_size % ranks:
+            raise ValueError(
+                f"batch_size {config.batch_size} not divisible by {ranks} devices")
+        return make_mesh(device=device)
+    if n is not None and n > 1:
+        raise ValueError(
+            f"n_devices={n} needs {n} processes joined in a torch.distributed "
+            f"group, one per card, and none is initialised: " + launch.format(n=n))
+    cards = device_count()
     on_card = device is None or torch.device(device).type == "cuda"
-    if config.n_devices is None and mesh is None and on_card and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"TrainJobConfig.n_devices=None means every visible card "
-            f"({torch.cuda.device_count()}), and data parallel is not ported yet "
-            f"to tpuflow_torch (ROADMAP.md Queue 1 item 8 (data parallel)); "
-            f"pass n_devices=1"
-        )
+    if n is None and on_card and cards > 1:
+        raise ValueError(
+            f"TrainJobConfig.n_devices=None means every visible card ({cards}), "
+            f"and the port runs one process per card: for data parallel over "
+            f"them, " + launch.format(n=cards) + "; or pass n_devices=1 to "
+            "train on one card")
+    return None
 
 
 @dataclass
@@ -183,14 +231,16 @@ def _gilbert_mae_last_step(names, raw_last, y_raw) -> float | None:
     return _gilbert_mae(raw_last[:, ip], raw_last[:, ic], raw_last[:, ig], y_raw)
 
 
-def _epoch_program(config: TrainJobConfig, mesh, dev: torch.device) -> ProgramChoice:
+def _epoch_program(config: TrainJobConfig, mesh, dev: torch.device,
+                   dp: Mesh | None = None) -> ProgramChoice:
     """Resolve ``jit_epoch`` as ``tpuflow/api/train_api.py:651-667`` does:
     an explicit True/False is honoured, None ("auto") is
-    ``choose_epoch_program``'s. A ring cannot run the scanned program."""
+    ``choose_epoch_program``'s. A ring (``mesh``) and data parallel (``dp``)
+    cannot run the scanned program."""
     if config.jit_epoch is None:
         return choose_epoch_program(
             config.batch_size, stream=config.stream, tp=config.tp, pp=config.pp,
-            ep=config.ep, ring=mesh is not None,
+            ep=config.ep, ring=mesh is not None, data_parallel=dp is not None,
             device_kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             compute_dtype=config.precision,
         )
@@ -200,6 +250,14 @@ def _epoch_program(config: TrainJobConfig, mesh, dev: torch.device) -> ProgramCh
             "epoch is a CUDA graph of the train step, and the ring's "
             "torch.distributed collectives cannot be captured in one; pass "
             "jit_epoch=False or None"
+        )
+    if config.jit_epoch and dp is not None:
+        raise ValueError(
+            f"jit_epoch=True cannot train data parallel over {dp.size} ranks: the "
+            "scanned epoch is a CUDA graph of the train step, a gloo group's "
+            "gradient all-reduce cannot be captured in one, and the graphed "
+            "data-parallel epoch over NCCL is not ported (ROADMAP.md Queue 1 "
+            "item 8); pass jit_epoch=False or None"
         )
     return ProgramChoice(bool(config.jit_epoch), "explicitly set in config", "explicit")
 
@@ -241,9 +299,10 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     versions)."""
     _refuse_not_ported(config)
     mesh = config.model_kwargs.get("mesh") if config.model_kwargs.get("backend") == "ring" else None
-    _refuse_every_card(config, mesh, device)
-    dev = resolve_device(mesh.device if device is None and mesh is not None else device)
-    program = _epoch_program(config, mesh, dev)
+    dp = _dp_mesh(config, mesh, device)
+    group = mesh or dp
+    dev = resolve_device(group.device if device is None and group is not None else device)
+    program = _epoch_program(config, mesh, dev, dp)
     if config.loss not in LOSSES:
         raise ValueError(f"unknown loss {config.loss!r}; known: {sorted(LOSSES)}")
     if config.storage_path:
@@ -251,8 +310,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     if mesh is not None and config.window % mesh.size:
         raise ValueError(
             f"sequence length {config.window} not divisible by {DATA_AXIS}={mesh.size}")
-    # On a ring, rank 0 alone writes the artifact.
-    writes = mesh is None or mesh.rank == 0
+    # On a ring or data parallel, rank 0 alone writes the artifact.
+    writes = group is None or group.rank == 0
     t0 = time.monotonic()
     names = config.column_names or SYNTHETIC_COLUMN_NAMES
     types = config.column_types or SYNTHETIC_COLUMN_TYPES
@@ -273,10 +332,18 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
     )
     model.reset_parameters(torch.Generator().manual_seed(config.seed))
     model.to(dev)
+    if dp is not None:
+        replicate(dp, model)
     if hasattr(model, "dropout_generator"):
         # The epoch program's CUDA graph registers this generator, so each
-        # replay draws new masks.
-        model.dropout_generator = torch.Generator(device=dev).manual_seed(config.seed)
+        # replay draws new masks; each data-parallel rank draws its own.
+        seed = config.seed if dp is None else rank_seed(config.seed, dp.rank)
+        model.dropout_generator = torch.Generator(device=dev).manual_seed(seed)
+    steps = {}
+    if dp is not None:
+        steps = dict(zip(("train_step", "eval_step"), make_process_fed_steps(
+            dp, make_dp_train_step(model, spec.bind(model.parameters()), loss_fn, dp),
+            make_dp_eval_step(model, loss_fn, dp))))
 
     result = fit(
         model,
@@ -295,13 +362,16 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             jit_epoch=program.jit_epoch,
         ),
         optimizer=spec,
+        **steps,
     )
     # Final evaluation (cnn.py:132-134): the fit loop's eval batch unless the
-    # test split is larger than a few of them (train_api.py:1128-1130).
+    # test split is larger than a few of them on one card (train_api.py:
+    # 1128-1130); data parallel evaluates through its own step.
     eval_bs = config.batch_size
-    if test_ds.n > 4 * config.batch_size:
+    if dp is None and test_ds.n > 4 * config.batch_size:
         eval_bs = max(config.batch_size, 256)
-    test = evaluate(result.model, test_ds, batch_size=eval_bs, loss=loss_fn)
+    test = evaluate(result.model, test_ds, batch_size=eval_bs, loss=loss_fn,
+                    eval_step=steps.get("eval_step"))
 
     if config.storage_path and writes:
         from tpuflow_torch.api.predict_api import save_artifact_meta
@@ -324,8 +394,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
             _sidecar_kwargs(config.model_kwargs), "windowed", pre,
             tuple(train_ds.x.shape),
         )
-    if mesh is not None:
-        dist.barrier(group=mesh.group)  # the artifact is complete for every rank
+    if group is not None:
+        dist.barrier(group=group.group)  # the artifact is complete for every rank
 
     report = TrainReport(
         result=result,
@@ -335,7 +405,8 @@ def train(config: TrainJobConfig, device=None) -> TrainReport:
         test_mae=test["mae"] * splits.target_std,
         gilbert_mae=gilbert_test,
         time_elapsed=time.monotonic() - t0,
-        samples_per_sec=result.samples_per_sec,
+        # Samples/s a chip: the global rate over the data-parallel ranks.
+        samples_per_sec=result.samples_per_sec / (dp.size if dp is not None else 1),
         epoch_program=program.name,
         epoch_program_reason=program.reason,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

@@ -9,14 +9,21 @@ The positional arguments are the reference's four (reference cnn.py:41-44):
 comma-separated column names, comma-separated types (int|float|anything
 else = categorical), the target column and the artifact storage path. With
 none, the synthetic well schema is used. ``--device`` defaults to the GPU
-and fails without one; ``--device cpu`` runs the plain PyTorch path. The
-JAX CLI's other flags are refused as not ported yet.
+and fails without one; ``--device cpu`` runs the plain PyTorch path. Data
+parallel runs one process per card under torchrun, which sets
+``WORLD_SIZE``; the CLI then joins the group before it trains::
+
+    torchrun --nproc-per-node 4 -m tpuflow_torch.cli "" "" flow ART \\
+        --model stacked_lstm --devices 4
+
+The JAX CLI's other flags are refused as not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -51,8 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "below batch 256 (tpuflow_torch/train/autotune.py)")
     p.add_argument("--no-jit-epoch", action="store_false", dest="jit_epoch",
                    help="force per-batch stepping")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel device count (default: all); one process "
+                        "per device: torchrun --nproc-per-node N ... --devices N")
     p.add_argument("--device", default=None,
-                   help="cuda (default; fails without a GPU), cuda:N or cpu")
+                   help="cuda (default; fails without a GPU; under torchrun, this "
+                        "rank's card), cuda:N or cpu")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -108,7 +119,13 @@ def main(argv=None) -> int:
         synthetic_wells=args.synthetic_wells,
         synthetic_steps=args.synthetic_steps,
         verbose=not args.quiet,
+        n_devices=args.devices,
     )
+    if "WORLD_SIZE" in os.environ:
+        # Under torchrun: join the ranks' group before train (data parallel).
+        from tpuflow_torch.parallel import init_distributed
+
+        init_distributed()
     train(config, device=args.device)
     return 0
 

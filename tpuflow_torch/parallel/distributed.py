@@ -28,6 +28,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from tpuflow_torch.parallel.placement import device_count
+
 log = logging.getLogger(__name__)
 
 TIMEOUT_S = 300.0  # the process group's, and spawn's for the whole run
@@ -37,7 +39,7 @@ def default_backend(world_size: int, device=None) -> str:
     """``"nccl"`` when every rank can have a card of its own, else
     ``"gloo"`` (ranks on the CPU, or sharing cards)."""
     on_card = device is None or torch.device(device).type == "cuda"
-    if on_card and torch.cuda.is_available() and torch.cuda.device_count() >= world_size:
+    if on_card and torch.cuda.is_available() and device_count() >= world_size:
         return "nccl"
     return "gloo"
 

@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 
 from tpuflow_torch import resolve_device
+from tpuflow_torch.parallel.placement import device_count
 
 DATA_AXIS = "data"
 
@@ -53,7 +54,7 @@ def make_mesh(group=None, device=None) -> Mesh:
     if device is None:
         resolve_device(None)  # raises without a card
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        device = torch.device("cuda", local % torch.cuda.device_count())
+        device = torch.device("cuda", local % device_count())
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)

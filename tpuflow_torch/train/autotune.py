@@ -87,12 +87,15 @@ def choose_epoch_program(
     pp: int = 1,
     ep: int = 1,
     ring: bool = False,
+    data_parallel: bool = False,
     device_kind: str = "cpu",
     compute_dtype: str | None = None,
 ) -> ProgramChoice:
     """Resolve ``jit_epoch=None`` ("auto") for one training job.
     ``device_kind`` is ``torch.cuda.get_device_name`` of the card, or
-    ``"cpu"``; ``compute_dtype`` the precision token ("f32").
+    ``"cpu"``; ``compute_dtype`` the precision token ("f32");
+    ``data_parallel`` stands for JAX's ``multi_host``: the port runs one
+    process per rank.
 
     ``train()`` refuses ``stream``, ``tp``, ``pp`` and ``ep`` before it
     asks (ROADMAP.md Queue 1 items 10 and 11), so their branches are
@@ -123,6 +126,14 @@ def choose_epoch_program(
             False, "ring attention trains through per-batch steps: its "
             "torch.distributed collectives cannot be captured in a CUDA graph",
             "constraint",
+        )
+    if data_parallel:
+        # The port's data parallelism is JAX's multi-process case, which
+        # AUTO also keeps per-batch.
+        return ProgramChoice(
+            False, "data parallelism trains through per-batch steps: a gloo "
+            "group's collectives cannot be captured in a CUDA graph, and the "
+            "graphed data-parallel epoch over NCCL is not ported", "constraint",
         )
     measured = load_measured_crossover(device_kind, compute_dtype)
     dtype_tag = f" [{compute_dtype}]" if compute_dtype else ""

@@ -18,6 +18,10 @@ the store layout the port's ``Predictor`` and the JAX package's
 ``StoreCheckpointer`` both read, and the numerics watchdog's ``warn``
 policy after each epoch (``tpuflow_torch/obs/health.py``).
 
+Under data parallelism each rank runs this loop over the same global batch
+order with the injected steps (``fit``); its caller saves best on rank 0
+alone, and ``samples_per_sec`` counts the global rows.
+
 The datasets are copied to the model's device once, and each epoch's batch
 order once per epoch, so the batch loop moves no host data and never waits
 for the card. What the JAX loop does beyond this (run-state checkpoints and
@@ -88,14 +92,30 @@ def fit(
     val_ds: ArrayDataset,
     config: FitConfig = FitConfig(),
     optimizer: OptimizerSpec | None = None,
+    train_step=None,
+    eval_step=None,
 ) -> FitResult:
     """Train ``model`` in place on its device with early stopping and
     optional save-best checkpointing; ``optimizer`` defaults to the
-    reference's ``keras_sgd``."""
+    reference's ``keras_sgd``.
+
+    ``train_step``/``eval_step`` may be injected, as in JAX's ``fit``
+    (``loop.py:206-226``): the data-parallel steps of
+    ``tpuflow_torch.parallel.make_process_fed_steps`` take each global
+    batch and return the loss averaged and the eval sums summed over the
+    ranks, so every rank records the same history and stops at the same
+    epoch. An injected ``train_step`` brings its own optimizer, and runs
+    per-batch only: the scanned epoch is a single-card program."""
+    if config.jit_epoch and train_step is not None:
+        raise ValueError(
+            "jit_epoch's epoch program is single-card and would ignore the "
+            "injected train_step; use per-batch stepping (jit_epoch=False)"
+        )
     device = _device_of(model)
-    opt = (optimizer or keras_sgd()).bind(model.parameters())
-    train_step = make_train_step(model, opt, config.loss)
-    eval_step = make_eval_step(model, config.loss)
+    if train_step is None:
+        opt = (optimizer or keras_sgd()).bind(model.parameters())
+        train_step = make_train_step(model, opt, config.loss)
+    eval_step = eval_step or make_eval_step(model, config.loss)
     x_train = torch.from_numpy(train_ds.x).to(device)
     y_train = torch.from_numpy(train_ds.y).to(device)
     epoch_step = (make_epoch_step(model, opt, config.loss, x_train, y_train)
@@ -174,10 +194,13 @@ def _per_batch_epoch(train_step, x_train, y_train, order, batch_size, device):
 
 
 def evaluate(
-    model: torch.nn.Module, ds: ArrayDataset, batch_size: int = 256, loss=mae_clip
+    model: torch.nn.Module, ds: ArrayDataset, batch_size: int = 256, loss=mae_clip,
+    eval_step=None,
 ) -> dict:
-    """Full-dataset eval: mean loss and MAE over fixed-size batches."""
-    return _eval_dataset(make_eval_step(model, loss), ds, batch_size, _device_of(model))
+    """Full-dataset eval: mean loss and MAE over fixed-size batches, through
+    ``eval_step`` when one is injected (the data-parallel one)."""
+    step = eval_step or make_eval_step(model, loss)
+    return _eval_dataset(step, ds, batch_size, _device_of(model))
 
 
 def _eval_dataset(eval_step, ds: ArrayDataset, batch_size: int, device) -> dict:

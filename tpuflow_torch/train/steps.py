@@ -28,17 +28,28 @@ from tpuflow_torch.train.optim import Optimizer
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def make_train_step(model: torch.nn.Module, optimizer: Optimizer, loss_fn: LossFn):
+def make_train_step(
+    model: torch.nn.Module,
+    optimizer: Optimizer,
+    loss_fn: LossFn,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+):
     """``step(x, y) -> {"loss", "grad_norm"}``, both f32 device scalars;
-    updates ``model``'s parameters in place."""
+    updates ``model``'s parameters in place. ``reduce(loss) -> loss``, when
+    given, runs between the backward and the update, on the loss and the
+    parameters' ``.grad`` (the data-parallel all-reduce,
+    ``parallel/dp.py``)."""
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
         model.train()  # dropout on
         optimizer.zero_grad()
         loss = loss_fn(y, model(x).to(torch.float32))
         loss.backward()
+        loss = loss.detach()
+        if reduce is not None:
+            loss = reduce(loss)
         gnorm = optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+        return {"loss": loss, "grad_norm": gnorm.detach()}
 
     return step
 
